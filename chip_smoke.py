@@ -3,18 +3,30 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-It drives the port's main path, FullySup GL training (ResNet-18 encoder, mlp
-head, 128-d features, graph Laplace learning in dense mode, custom CE, SGD
-with momentum and a cosine schedule), at the flagship's full width: 250 base
-+ 1250 batch 32x32x3 uint8 images per step, 10 classes, k=25, tau=0.07,
-eps='auto'.  Weights are random, drawn from a seeded generator; the images
-come from the port's synthetic dataset.  Phases, one JSON line each:
+It drives the port's two main paths at the flagship's full width.  Training:
+FullySup GL training (ResNet-18 encoder, mlp head, 128-d features, graph
+Laplace learning in dense mode, custom CE, SGD with momentum and a cosine
+schedule), 250 base + 1250 batch 32x32x3 uint8 images per step, 10 classes,
+k=25, tau=0.07, eps='auto'.  Eval: the transductive eval over 250 base +
+50,000 train + 10,000 test images (60,250 nodes), k=50, tau=1e-8, eps='auto',
+a CG solve in bsr mode.  Weights are random, drawn from a seeded generator;
+the images come from the port's synthetic dataset.  Phases, one JSON line
+each:
 
   device  the card, its power limit, torch and CUDA versions;
-  build   every CUDA kernel of the port, compiled from csrc/ with nvcc;
+  build   every CUDA kernel of the port, compiled from csrc/ with one nvcc
+          per source, all started together;
   k1      kernel K1 against its plain PyTorch version on the card at the
           op's shape (n=1500, d=128, k=25) and at n=300, max |diff| <= 1e-6,
           with CUDA-event times and the reckoned bound;
+  k2      kernel K2 (fused KNN) against its plain version at the eval's
+          shape (n=60,250, d=128, k=50) and at n=1500, k=25, on clustered
+          features: max |dist2 diff| <= 1e-5; the same neighbor sets on
+          every row outside the boundary-tie set (k-th and (k+1)-th plain
+          distances within twice that measured error), and on each row
+          that differs exactly one neighbor swapped at the boundary, on at
+          most 0.1% of rows; CUDA-event times of the kernel, the plain
+          route and one cdist + topk;
   op      laplace_learning forward + backward on the card in float32 against
           the port's float64 CPU result on the same input;
   train   20 full-width train steps in float32 (TF32 off everywhere), 20
@@ -26,6 +38,15 @@ come from the port's synthetic dataset.  Phases, one JSON line each:
           time by kernel and the device's busy share;
   parity  one train step at a reduced batch (40 + 160) from identical
           weights on the card and on the CPU, TF32 off;
+  solve   transductive_laplace at 60,250 nodes on clustered features with
+          an EvalGraphCache: two warm-up and three timed solves, the mode
+          that ran, CG iterations and residual, peak memory, and a profile
+          of one more solve;
+  solve_parity  the same solve at 10,250 nodes on the card (float32)
+          against the port on the CPU (float64);
+  transductive_eval  the eval main path: test_gl_transductive with the
+          trained float32 state over 250 + 50,000 + 10,000 synthetic
+          images, across which K2's launch count is read;
 
 then the ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and the final ``{"ok": true, ...}`` line.  Any failed check
@@ -44,6 +65,13 @@ SEED = 0
 N_BASE, N_BATCH, NUM_CLASSES, K, TAU = 250, 1250, 10, 25, 0.07
 F32_STEPS, TF32_STEPS, BF16_STEPS = 20, 20, 5
 K1_TOL = 1e-6
+# the transductive eval: base + train + test nodes, neighbors and tau
+EVAL_BASE, EVAL_TRAIN, EVAL_TEST = 250, 50_000, 10_000
+EVAL_K, EVAL_TAU = 50, 1e-8
+EVAL_N = EVAL_BASE + EVAL_TRAIN + EVAL_TEST
+PARITY_N = 10_250
+K2_TOL = 1e-5            # max |dist2 kernel - plain|
+K2_MAX_DIFFER = 1e-3     # share of rows whose neighbor sets may differ
 # H100 SXM peaks from NVIDIA's data sheet, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -61,6 +89,16 @@ PROFILE_GROUPS = (
     ("optimizer", ("multi_tensor", "foreach")),
     ("reduce", ("reduce",)),
     ("elementwise", ("elementwise",)),
+)
+# the same for the transductive solve, which runs no convolution: its only
+# GEMM is the BSR tile product
+SOLVE_GROUPS = (
+    ("k2_knn", ("knn_topk", "sqnorm")),
+    ("bsr_tile_matmul", ("gemm", "xmma", "cutlass", "sm90_")),
+    ("scatter_gather", ("index", "scatter", "gather")),
+    ("sort_histogram", ("sort", "radix", "histogram")),
+    ("reduce", ("reduce",)),
+    ("elementwise", ("elementwise", "fill")),
 )
 
 
@@ -111,6 +149,33 @@ def k1_bound_ms(n: int, d: int) -> tuple[float, str]:
                                        else "operations")
 
 
+def k2_bound_ms(n: int, d: int, k: int) -> tuple[float, str]:
+    """Least time for K2's work: d2 is symmetric, so the dot products need
+    only the Gram matrix's upper triangle, n (n + 1) / 2 d FMA of two f32
+    operations each, against x read once and nbr (int64) and dist2 written
+    once."""
+    nbytes = 4 * n * d + (8 + 4) * n * k
+    ops = n * (n + 1) * d
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def clustered_features(n: int, seed: int, d: int = 128, l: int = 10):
+    """The clustered geometry of benchmarks/bench_transductive.py (10
+    centers of scale 2, unit noise, rows L2-normalized), float32 on the
+    CPU, with the cluster labels."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(l, d)).astype(np.float32) * 2.0
+    lab = rng.integers(0, l, n)
+    x = centers[lab] + rng.normal(size=(n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return torch.from_numpy(x), lab
+
+
 def normalized_features(n: int, d: int, seed: int, min_gap: float = 0.0):
     """L2-normalized float32 features (CPU), redrawn until every row's K-th
     and (K+1)-th squared neighbor distances differ by at least ``min_gap``
@@ -149,14 +214,15 @@ def phase_build():
     from graphlearninglayer_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
-    built = _build.build("affinity_sym")
+    built = _build.build("affinity_sym", "knn_topk")
     wall = time.perf_counter() - t0
-    seconds, log = built if built is not None else (None, "")
-    emit("build", source="affinity_sym.cu", wall_s=round(wall, 3),
-         compiled=built is not None, nvcc_s=seconds,
-         nvcc_flags=list(_build.NVCC_FLAGS),
-         ptxas=[ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "smem" in ln])
+    for name, result in built.items():
+        seconds, log = result if result is not None else (None, "")
+        emit("build", source=f"{name}.cu", wall_s=round(wall, 3),
+             compiled=result is not None, nvcc_s=seconds,
+             nvcc_flags=list(_build.NVCC_FLAGS),
+             ptxas=[ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "smem" in ln or "spill" in ln])
 
 
 def phase_k1():
@@ -186,6 +252,89 @@ def phase_k1():
              edges=int(torch.maximum(g.m_raw, g.m_raw.T).sum().item()))
         result[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
+    return result
+
+
+def phase_k2():
+    """K2 against its plain version.  Under float32 rounding a row can swap
+    a neighbor across the k-th/(k+1)-th boundary only where the plain gap
+    there is below the two entries' summed errors, at most twice the
+    measured max |dist2 diff|: that band sets the boundary-tie set.  Every
+    row whose neighbor sets differ must lie in it and differ by exactly one
+    neighbor, the dropped one and the added one both within the band of
+    the plain (k+1)-th distance; at most K2_MAX_DIFFER of the rows may
+    differ."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
+    from graphlearninglayer_tpu_torch.ops.precision import full_f32
+
+    dev = torch.device("cuda")
+    result = {}
+    for n, k in ((EVAL_N, EVAL_K), (1500, 25)):
+        x = clustered_features(n, SEED + n)[0].to(dev)
+        nbr, dist2 = k2.fused_knn(x, k)
+        pn, pd = k2.fused_knn_plain(x, k + 1, 2048)
+        torch.cuda.synchronize()
+        edge = pd[:, k]                       # the plain (k+1)-th distance
+        pn, pd = pn[:, :k], pd[:, :k]
+        err = (dist2 - pd).abs().max().item()
+        band = 2.0 * err
+        gap = edge - pd[:, k - 1]
+        tie = gap <= band
+        differ = ~(torch.sort(nbr, 1).values
+                   == torch.sort(pn, 1).values).all(1)
+        rows = differ.nonzero().squeeze(1).tolist()
+        check(len(rows) <= K2_MAX_DIFFER * n,
+              f"K2 neighbor sets differ on {len(rows)} of {n} rows")
+        swap_gap = 0.0
+        one_boundary_swap = True
+        for r in rows:
+            added = ~torch.isin(nbr[r], pn[r])
+            dropped = ~torch.isin(pn[r], nbr[r])
+            if int(added.sum()) != 1 or int(dropped.sum()) != 1:
+                one_boundary_swap = False
+                continue
+            off = max((edge[r] - pd[r][dropped]).abs().item(),
+                      (dist2[r][added] - edge[r]).abs().item())
+            swap_gap = max(swap_gap, off)
+            one_boundary_swap &= off <= band
+        self_first = bool((nbr[:, 0] == torch.arange(n, device=dev)).all())
+        big = n > 10_000
+        ms = cuda_ms(lambda: k2.fused_knn(x, k), reps=5 if big else 25,
+                     warmup=1)
+        plain_ms = cuda_ms(lambda: k2.fused_knn_plain(x, k, 2048),
+                           reps=3 if big else 25, warmup=1)
+
+        def library():
+            with full_f32():
+                torch.topk(torch.cdist(x, x), k, dim=1, largest=False)
+
+        library_ms = cuda_ms(library, reps=3 if big else 25, warmup=1)
+        bound_ms, bound_by = k2_bound_ms(n, x.shape[1], k)
+        emit("k2", n=n, d=x.shape[1], k=k, max_abs_err=err, tol=K2_TOL,
+             tie_band=band, tie_rows=int(tie.sum()),
+             tie_share=tie.float().mean().item(),
+             tie_rows_rel_1e5=int((gap <= 1e-5 * pd[:, k - 1]).sum()),
+             differing_rows=len(rows),
+             differing_outside_ties=int((differ & ~tie).sum()),
+             one_boundary_swap=one_boundary_swap, swap_gap_max=swap_gap,
+             self_first=self_first, ms=ms, plain_ms=plain_ms,
+             library_ms=library_ms,
+             library="torch.cdist + torch.topk (two calls, full n x n)",
+             bound_ms=bound_ms, bound_by=bound_by)
+        check(self_first, f"K2 puts self first at n={n}")
+        check(err <= K2_TOL, f"K2 max |dist2 diff| {err} <= {K2_TOL}")
+        check(not bool((differ & ~tie).any()),
+              f"K2 neighbor sets equal the plain ones outside the tie set "
+              f"at n={n}")
+        check(one_boundary_swap, f"K2's differing rows each swap exactly "
+              f"one neighbor at the boundary at n={n} ({swap_gap} > {band})")
+        result[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        del x, nbr, dist2, pn, pd, edge, gap
+    torch.cuda.empty_cache()
     return result
 
 
@@ -341,25 +490,20 @@ def phase_parity():
           f"card/CPU param err {param_err} <= 2% of the update {update}")
 
 
-def phase_profile(state, step, data, rng, steps=3):
-    """Where a warm f32 train step (TF32 off) spends device time:
-    torch.profiler over ``steps`` steps; kernel time by name and the
-    device's busy share of the host-clock window."""
+def profile_window(run, steps: int, groups=PROFILE_GROUPS) -> dict:
+    """torch.profiler over ``steps`` calls of ``run()``: device time by
+    kernel and kernel group, and the device's busy share of the host-clock
+    window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    images, labels = data
-    torch.backends.cudnn.allow_tf32 = False
-    batches = [rng.permutation(len(images))[:N_BASE + N_BATCH]
-               for _ in range(steps)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for idx in batches:
-            b, t = idx[:N_BASE], idx[N_BASE:]
-            step(state, images[b], labels[b], images[t], labels[t])
+        for _ in range(steps):
+            run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -374,24 +518,43 @@ def phase_profile(state, step, data, rng, steps=3):
             end = b
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    groups: dict[str, float] = {}
+    by_group: dict[str, float] = {}
     for name, t in by_name.items():
-        group = next((g for g, keys in PROFILE_GROUPS
+        group = next((g for g, keys in groups
                       if any(k in name.lower() for k in keys)), "other")
-        groups[group] = groups.get(group, 0.0) + t
+        by_group[group] = by_group.get(group, 0.0) + t
+    return dict(
+        wall_ms_per_step=wall_us / 1e3 / steps,
+        device_busy_ms_per_step=busy / 1e3 / steps,
+        kernel_ms_per_step=total / 1e3 / steps,
+        busy_share=busy / wall_us if kernels else "not measured",
+        groups_ms_per_step={g: t / 1e3 / steps for g, t in
+                            sorted(by_group.items(), key=lambda kv: -kv[1])},
+        top_kernels=[{"name": n[:90], "ms_per_step": t / 1e3 / steps,
+                      "share": t / total} for n, t in top])
+
+
+def phase_profile(state, step, data, rng, steps=3):
+    """Where a warm f32 train step (TF32 off) spends device time."""
+    import torch
+
+    images, labels = data
+    torch.backends.cudnn.allow_tf32 = False
+    batches = iter([rng.permutation(len(images))[:N_BASE + N_BATCH]
+                    for _ in range(steps)])
+
+    def run():
+        idx = next(batches)
+        b, t = idx[:N_BASE], idx[N_BASE:]
+        step(state, images[b], labels[b], images[t], labels[t])
+
     emit("profile", steps=steps, cudnn_tf32=False, matmul_tf32=False,
-         wall_ms_per_step=wall_us / 1e3 / steps,
-         device_busy_ms_per_step=busy / 1e3 / steps,
-         kernel_ms_per_step=total / 1e3 / steps,
-         busy_share=busy / wall_us if kernels else "not measured",
-         groups_ms_per_step={g: t / 1e3 / steps for g, t in
-                             sorted(groups.items(), key=lambda kv: -kv[1])},
-         top_kernels=[{"name": n[:90], "ms_per_step": t / 1e3 / steps,
-                       "share": t / total} for n, t in top])
+         **profile_window(run, steps))
 
 
 def phase_train():
-    """The main path; returns K1's launches in it."""
+    """The training main path; returns K1's launches in it and the float32
+    state it trained."""
     import numpy as np
     import torch
 
@@ -425,6 +588,132 @@ def phase_train():
     emit("eval", base=N_BASE, test=N_BATCH, acc=float(acc),
          chance=1.0 / NUM_CLASSES)
     phase_profile(f32_state, f32_step, data, rng)
+    return launches, f32_state
+
+
+def phase_solve():
+    """The cached 60,250-node solve (the production configuration of
+    benchmarks/bench_transductive.py): two warm-up and three timed solves
+    on distinct inputs through one EvalGraphCache, then one profiled."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.ops import (EvalGraphCache,
+                                                  one_hot_encode,
+                                                  transductive_laplace)
+    from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
+
+    dev = torch.device("cuda")
+    x, lab = clustered_features(EVAL_N, SEED + 1)
+    x = x.to(dev)
+    y = one_hot_encode(torch.as_tensor(lab[:EVAL_BASE]), NUM_CLASSES).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xs = [x + 1e-4 * torch.randn(x.shape, generator=gen, device=dev)
+          for _ in range(6)]
+    cache = EvalGraphCache()
+
+    def solve(xi):
+        return transductive_laplace(xi, y, knn_num=EVAL_K, tau=EVAL_TAU,
+                                    return_info=True, cache=cache)
+
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for xi in xs[:5]:
+        before = k2.fused_knn.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred, iters, err = solve(xi)
+        torch.cuda.synchronize()
+        runs.append(dict(s=time.perf_counter() - t0, cg_iters=iters,
+                         cg_err=err, converged=err <= 1e-10,
+                         mode="bsr" if cache.perm is not None else "sorted",
+                         smax=cache.smax, ovf_cap=cache.ovf_cap,
+                         k2_launches=k2.fused_knn.launches - before))
+        if err > 1e-10:      # hit max_iter: reported, not repeated
+            break
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timed = [r["s"] for r in runs[2:]]
+    acc = (pred.argmax(1).cpu().numpy() == lab[EVAL_BASE:]).mean()
+    prof = profile_window(lambda: solve(xs[5]), 1, SOLVE_GROUPS)
+    emit("solve", n=EVAL_N, d=x.shape[1], k=EVAL_K, l=NUM_CLASSES,
+         tau=EVAL_TAU, warmups=2, runs=runs,
+         s_per_solve=statistics.mean(timed) if timed else "not measured",
+         peak_mem_gib=peak, acc=float(acc), profile=prof)
+    check(tuple(pred.shape) == (EVAL_N - EVAL_BASE, NUM_CLASSES),
+          "solve output shape")
+    check(bool(torch.isfinite(pred).all()), "finite scores")
+    check(all(r["mode"] == "bsr" for r in runs), "the solve ran in bsr mode")
+    check(all(r["k2_launches"] == 1 for r in runs), "one K2 launch a solve")
+
+
+def phase_solve_parity():
+    """The solve at PARITY_N nodes on the card (float32) against the port on
+    the CPU (float64), on the same clustered features."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.ops import (one_hot_encode,
+                                                  transductive_laplace)
+
+    x, lab = clustered_features(PARITY_N, SEED + 2)
+    y = one_hot_encode(torch.as_tensor(lab[:EVAL_BASE]), NUM_CLASSES)
+    kw = dict(knn_num=EVAL_K, tau=EVAL_TAU, return_info=True)
+    card, it_card, err_card = transductive_laplace(x.cuda(), y.cuda(), **kw)
+    t0 = time.perf_counter()
+    cpu, it_cpu, err_cpu = transductive_laplace(x.double(), y.double(), **kw)
+    cpu_s = time.perf_counter() - t0
+    card = card.double().cpu()
+    agree = (card.argmax(1) == cpu.argmax(1)).double().mean().item()
+    rel = ((card - cpu).abs().max() / cpu.abs().max()).item()
+    emit("solve_parity", n=PARITY_N, k=EVAL_K, tau=EVAL_TAU,
+         argmax_agreement=agree, agreement_tol=0.999,
+         max_abs_err_over_max=rel, rel_tol=1e-3, cg_iters_card=it_card,
+         cg_err_card=err_card, cg_iters_cpu=it_cpu, cg_err_cpu=err_cpu,
+         cpu_f64_s=cpu_s)
+    check(agree >= 0.999, f"card/CPU argmax agreement {agree} >= 0.999")
+    check(rel <= 1e-3, f"card/CPU max |pred diff| {rel} <= 1e-3 max |pred|")
+
+
+def phase_transductive_eval(state):
+    """The eval main path; returns K2's launches in it."""
+    import numpy as np
+    import torch
+
+    from graphlearninglayer_tpu_torch.data import (CHANNEL_STATS,
+                                                   synthetic_dataset)
+    from graphlearninglayer_tpu_torch.evalx import test_gl_transductive
+    from graphlearninglayer_tpu_torch.ops import EvalGraphCache
+    from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
+
+    t0 = time.perf_counter()
+    spec = synthetic_dataset(num_classes=NUM_CLASSES, image_shape=(32, 32, 3),
+                             n_train=EVAL_TRAIN, n_test=EVAL_TEST,
+                             seed=SEED + 3)
+    data_s = time.perf_counter() - t0
+    base = np.random.default_rng(SEED + 3).permutation(EVAL_TRAIN)[:EVAL_BASE]
+    # PyTorch's default for convolutions, as a user's eval would run
+    torch.backends.cudnn.allow_tf32 = True
+    cache, stats = EvalGraphCache(), {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.fused_affinity_sym.launches = 0
+    k2.fused_knn.launches = 0
+    acc = test_gl_transductive(
+        state, spec.train_images[base], spec.train_labels[base],
+        spec.test_images, spec.test_labels, None, NUM_CLASSES,
+        train_images=spec.train_images, knn_num=EVAL_K, tau=EVAL_TAU,
+        norm=CHANNEL_STATS["cifar10"], cache=cache, device="cuda",
+        stats=stats)
+    launches = k2.fused_knn.launches
+    k1_launches = k1.fused_affinity_sym.launches
+    emit("transductive_eval", base=EVAL_BASE, train=EVAL_TRAIN,
+         test=EVAL_TEST, k=EVAL_K, tau=EVAL_TAU, cudnn_tf32=True,
+         matmul_tf32=False, acc=acc, chance=100.0 / NUM_CLASSES,
+         dataset_s=data_s, mode="bsr" if cache.perm is not None else "sorted",
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+         k2_launches=launches, k1_launches=k1_launches, **stats)
+    check(launches >= 1, f"K2 launched in the eval ({launches})")
+    check(stats["n_nodes"] == EVAL_N, "eval graph size")
+    check(acc > 100.0 / NUM_CLASSES, f"eval accuracy {acc} above chance")
     return launches
 
 
@@ -439,23 +728,40 @@ def main() -> int:
     card = phase_device()
     phase_build()
     k1_stats = phase_k1()
+    k2_stats = phase_k2()
     phase_op()
-    launches = phase_train()
+    k1_launches, state = phase_train()
     phase_parity()
-    main_shape = k1_stats[1500]
+    phase_solve()
+    phase_solve_parity()
+    k2_launches = phase_transductive_eval(state)
+    k1_main, k2_main = k1_stats[1500], k2_stats[EVAL_N]
     kernels = [{
         "name": "fused_affinity_sym",
         "route": "cuda",
         "source": "graphlearninglayer_tpu_torch/ops/kernels/csrc/"
                   "affinity_sym.cu",
         "replaces": "graphlearninglayer_tpu/ops/kernels/affinity.py:49",
-        "launches": launches,
+        "launches": k1_launches,
         "max_abs_err": max(s["max_abs_err"] for s in k1_stats.values()),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
+        "ms": k1_main["ms"],
+        "plain_ms": k1_main["plain_ms"],
+        "bound_ms": k1_main["bound_ms"],
+        "bound_by": k1_main["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "fused_knn",
+        "route": "cuda",
+        "source": "graphlearninglayer_tpu_torch/ops/kernels/csrc/"
+                  "knn_topk.cu",
+        "replaces": "graphlearninglayer_tpu/ops/kernels/knn_topk.py:143",
+        "launches": k2_launches,
+        "max_abs_err": max(s["max_abs_err"] for s in k2_stats.values()),
+        "ms": k2_main["ms"],
+        "plain_ms": k2_main["plain_ms"],
+        "bound_ms": k2_main["bound_ms"],
+        "bound_by": k2_main["bound_by"],
+        "library_ms": k2_main["library_ms"],
     }]
     emit("done", wall_s=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))

@@ -45,23 +45,37 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build(name: str) -> tuple[float, str] | None:
-    """Compile ``csrc/<name>.cu`` unless its library exists.  Returns
+def build(*names: str) -> dict[str, tuple[float, str] | None]:
+    """Compile each ``csrc/<name>.cu`` whose library does not exist, one
+    ``nvcc`` per source, all started together.  Returns, per name,
     ``(seconds, ptxas report)`` when it compiled, None when the library was
-    there; raises if ``nvcc`` fails."""
-    out = _target(name)
-    if out.exists():
-        return None
+    there; raises if any ``nvcc`` fails."""
+    result: dict[str, tuple[float, str] | None] = dict.fromkeys(names)
+    todo = [name for name in names if not _target(name).exists()]
+    if not todo:
+        return result
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu (exit "
-                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return time.perf_counter() - t0, proc.stderr
+    started = {}
+    for name in todo:
+        out = _target(name)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        started[name] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in started.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu (exit "
+                          f"{proc.returncode}):\n{stdout}{stderr}")
+            continue
+        os.replace(tmp, out)
+        result[name] = (time.perf_counter() - t0, stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return result
 
 
 def load(name: str) -> ctypes.CDLL:

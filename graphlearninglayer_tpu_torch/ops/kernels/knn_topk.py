@@ -1,0 +1,119 @@
+"""Kernel K2: exact fused KNN (all-pairs distance + running top-k).
+
+``fused_knn(x, k)`` returns ``(nbr, dist2)``, both (n, k): for every row of
+``x`` (n, d) its k nearest rows in ascending squared distance
+
+    d2_ij = max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0),
+
+self first (pinned by d2_ii := -1 during selection), ``nbr`` int64 and
+``dist2`` clamped at 0.  It replaces the Pallas TPU kernel
+``graphlearninglayer_tpu/ops/kernels/knn_topk.py::fused_knn`` and computes
+what ``ops/knn.py::knn_tiled`` computes.
+
+* On a CUDA tensor it launches the hand-written Hopper kernel in
+  ``csrc/knn_topk.cu`` (its header states the bound and the design), or
+  raises.  There is no fallback.  It takes float32, contiguous, k <= 64.
+* On a CPU tensor it runs :func:`fused_knn_plain`, the same function in
+  plain PyTorch, in the input's dtype, ``block`` query rows at a time.
+
+``fused_knn.launches`` counts kernel launches; the plain version never moves
+it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..precision import full_f32
+from . import _build
+
+__all__ = ["fused_knn", "fused_knn_plain", "MAX_K"]
+
+MAX_K = 64   # the running list's width (the Pallas kernel's default rt)
+
+
+def fused_knn_plain(x: torch.Tensor, k: int, block: int = 1024
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 in plain PyTorch (the JAX package's ``knn_tiled`` route): per
+    ``block`` query rows, one distance panel against all of ``x`` and one
+    ``torch.topk``.  Peak panel memory is ``block`` x n.  The CPU path, and
+    the yardstick the kernel is held against on the card."""
+    n = x.shape[0]
+    xx_all = torch.sum(x * x, dim=-1)
+    nbrs, dists = [], []
+    with full_f32():
+        for start in range(0, n, block):
+            xb = x[start:start + block]
+            rows = torch.arange(xb.shape[0], device=x.device)
+            qq = torch.sum(xb * xb, dim=-1)
+            d2 = (qq[:, None] + xx_all[None, :]
+                  - 2.0 * (xb @ x.T)).clamp_min(0.0)
+            d2[rows, rows + start] = -1.0
+            dist, idx = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+            nbrs.append(idx)
+            dists.append(dist.clamp_min(0.0))
+    return torch.cat(nbrs), torch.cat(dists)
+
+
+def _check(x: torch.Tensor, k: int) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"x must be (n, d), got shape {tuple(x.shape)}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"fused_knn requires 1 <= k <= {MAX_K}, got {k}")
+    if k > x.shape[0]:
+        raise ValueError(f"k ({k}) exceeds the number of rows "
+                         f"({x.shape[0]})")
+
+
+_kernel_fn = None
+
+
+def _kernel():
+    """The C entry point of ``csrc/knn_topk.cu``, built and typed on first
+    use."""
+    global _kernel_fn
+    if _kernel_fn is None:
+        fn = _build.load("knn_topk").gll_knn_topk_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _kernel_fn = fn
+    return _kernel_fn
+
+
+def _launch(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    if x.dtype != torch.float32:
+        raise TypeError(f"the K2 kernel takes float32; x is {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("the K2 kernel takes a contiguous x")
+    n, d = x.shape
+    fn = _kernel()
+    sq = torch.empty((n,), dtype=torch.float32, device=x.device)
+    nbr = torch.empty((n, k), dtype=torch.int64, device=x.device)
+    dist2 = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), sq.data_ptr(), nbr.data_ptr(),
+                 dist2.data_ptr(), n, d, k, stream)
+    if err != 0:
+        raise RuntimeError(f"K2 KNN kernel launch failed with CUDA error "
+                           f"{err} (n={n}, d={d}, k={k})")
+    fused_knn.launches += 1
+    return nbr, dist2
+
+
+def fused_knn(x: torch.Tensor, k: int, block: int = 1024
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact KNN ``(nbr, dist2)`` of the rows of ``x``; see the module
+    docstring.  CUDA tensors go to the kernel, CPU tensors to the plain
+    version, which alone uses ``block``."""
+    _check(x, k)
+    if x.device.type == "cpu":
+        return fused_knn_plain(x, k, block)
+    if x.device.type != "cuda":
+        raise ValueError(f"K2 runs on CUDA or CPU tensors, got {x.device}")
+    return _launch(x, k)
+
+
+fused_knn.launches = 0

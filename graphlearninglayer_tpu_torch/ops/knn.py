@@ -1,8 +1,10 @@
 """Exact k-nearest-neighbor search in PyTorch.
 
-Twin of ``graphlearninglayer_tpu/ops/knn.py`` (``pairwise_dist2``, ``knn``).
-At the per-batch graph sizes of the training op (n ~ 1.5k) exact KNN is one
-matrix product for the distances plus one ``torch.topk``.  Exact KNN is
+Twin of ``graphlearninglayer_tpu/ops/knn.py``.  At the per-batch graph sizes
+of the training op (n ~ 1.5k) exact KNN is one matrix product for the
+distances plus one ``torch.topk`` (:func:`knn`).  At the transductive eval's
+size (n ~ 60k, k = 50) :func:`knn_tiled` never forms the n x n matrix: on the
+card it is kernel K2, on the CPU K2's plain version.  Exact KNN is
 deterministic, which the parity tests rely on.
 
 Conventions (matching the reference):
@@ -14,7 +16,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["pairwise_dist2", "knn"]
+from .kernels.knn_topk import fused_knn
+
+__all__ = ["pairwise_dist2", "knn", "knn_tiled"]
 
 
 def pairwise_dist2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -49,3 +53,18 @@ def knn(x: torch.Tensor, k: int,
     d2 = d2.masked_fill(eye, -1.0)
     dist, idx = torch.topk(d2, k, dim=1, largest=False, sorted=True)
     return idx, dist.clamp_min(0.0)
+
+
+def knn_tiled(x: torch.Tensor, k: int,
+              block: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+    """Memory-bounded exact KNN for large n (the ~60k-node transductive
+    path); same ``(nbr, dist2)`` contract as :func:`knn`.
+
+    It is kernel K2, :func:`kernels.knn_topk.fused_knn`, with its contract
+    (``k`` at most 64; on the card a contiguous float32 ``x``).  On a CUDA
+    tensor the kernel never writes a distance panel and ``block`` is unused.
+    On a CPU tensor K2's plain version takes ``block`` query rows at a time,
+    one distance panel against all of ``x`` and one ``torch.topk``, so the
+    peak panel memory is ``block`` x n.
+    """
+    return fused_knn(x, k, block)

@@ -111,10 +111,10 @@ def laplace_learning(x: torch.Tensor, y: torch.Tensor, tau: float = 0.0,
                            and x.shape[0] <= DENSE_MAX_N) else "edge"
     if mode == "edge":
         raise NotImplementedError(
-            "edge mode (n > 4096 or solver='cg') is not ported yet; it comes "
-            "with the transductive-eval slice (ROADMAP.md, section 1, "
-            "slice 4: ops/graph.py, then ops/laplace.py edge mode and "
-            "solver='cg')")
+            "edge mode (n > 4096 or solver='cg') is not ported yet; it is "
+            "next in the queue (ROADMAP.md, section 1: ops/laplace.py edge "
+            "mode and solver='cg', with the CG backward, over the ported "
+            "ops/graph.py and stable_conjgrad)")
     if mode != "dense":
         raise ValueError(f"unknown mode {mode!r}")
     if solver != "cholesky":

@@ -1,9 +1,13 @@
-"""Dense Cholesky solve of the graph Laplace system.
+"""Linear solvers of the graph Laplace system.
 
-Twin of ``graphlearninglayer_tpu/ops/solve.py`` (``CholeskyFactor``,
-``cholesky_factor``, ``cholesky_solve``).  The per-batch training op
-factorizes ``Luu + tau I`` once and reuses the factor for the backward's
-adjoint solve.
+Twin of ``graphlearninglayer_tpu/ops/solve.py``.  Two regimes:
+
+  * **Direct dense solve** (``CholeskyFactor``, ``cholesky_factor``,
+    ``cholesky_solve``): the per-batch training op factorizes
+    ``Luu + tau I`` once and reuses the factor for the backward's adjoint
+    solve.
+  * **Column-masked multi-RHS CG** (``stable_conjgrad``): the transductive
+    eval's large graphs, where densifying is impossible.
 
 The factorization is ``torch.linalg.cholesky_ex``: unlike
 ``torch.linalg.cholesky`` it does not synchronize with the host to check
@@ -12,11 +16,12 @@ non-positive leading minor) stays a device tensor for the caller to report.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["CholeskyFactor", "cholesky_factor", "cholesky_solve"]
+__all__ = ["CholeskyFactor", "cholesky_factor", "cholesky_solve",
+           "stable_conjgrad"]
 
 
 class CholeskyFactor(NamedTuple):
@@ -38,3 +43,52 @@ def cholesky_factor(a: torch.Tensor) -> CholeskyFactor:
 
 def cholesky_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return cholesky_factor(a).solve(b)
+
+
+def stable_conjgrad(matvec: Callable[[torch.Tensor], torch.Tensor],
+                    b: torch.Tensor, x0: torch.Tensor | None = None,
+                    max_iter: int = 100_000, tol: float = 1e-10,
+                    return_info: bool = False):
+    """Column-masked multi-RHS conjugate gradient (the reference's
+    ``stable_conjgrad`` semantics):
+
+      * per-column ``alpha``/``beta`` are zeroed once that column's ``rs``
+        falls to ``tol**2`` (the column stops moving);
+      * the solve stops when ``max_col ||r_col|| <= tol`` or after
+        ``max_iter`` iterations.
+
+    ``matvec`` is a linear operator on (m, l) tensors, applied column-wise;
+    ``b`` is (m, l).  ``tol`` is taken in ``b``'s dtype, as the JAX package
+    does.  The loop checks the residual on the host once per iteration.
+    ``return_info=True`` returns ``(x, iterations, final residual)``, the
+    residual as a 0-d tensor.
+    """
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    tol_t = torch.tensor(tol, dtype=b.dtype, device=b.device)
+    tol2 = tol_t * tol_t
+
+    x = x0
+    r = b - matvec(x0)
+    p = r
+    rs = torch.sum(r * r, dim=0)
+    err = torch.sqrt(torch.max(rs))
+    iters = 0
+    while iters < max_iter and bool(err > tol_t):
+        ap = matvec(p)
+        pap = torch.sum(p * ap, dim=0)
+        live = rs > tol2
+        alpha = torch.where(live, rs / torch.where(live, pap, 1.0), 0.0)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rsnew = torch.sum(r * r, dim=0)
+        err = torch.sqrt(torch.max(rsnew))
+        livenew = rsnew > tol2
+        beta = torch.where(livenew, rsnew / torch.where(livenew, rs, 1.0),
+                           0.0)
+        p = r + beta * p
+        rs = rsnew
+        iters += 1
+    if return_info:
+        return x, iters, err
+    return x

@@ -1,12 +1,13 @@
 from .losses import custom_ce_loss
 from .optim import make_lr_schedule, make_optimizer
-from .trainer import (TrainState, create_train_state, make_gl_eval_step,
-                      make_gl_train_step, metrics_to_host, params_finite,
-                      resolve_device)
+from .trainer import (TrainState, create_train_state, make_encode_step,
+                      make_gl_eval_step, make_gl_train_step, metrics_to_host,
+                      params_finite, resolve_device)
 
 __all__ = [
     "custom_ce_loss", "make_lr_schedule", "make_optimizer",
-    "TrainState", "create_train_state", "make_gl_eval_step",
+    "TrainState", "create_train_state", "make_encode_step",
+    "make_gl_eval_step",
     "make_gl_train_step", "metrics_to_host", "params_finite",
     "resolve_device",
 ]

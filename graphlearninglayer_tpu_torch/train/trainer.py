@@ -29,7 +29,7 @@ from .optim import make_optimizer
 
 __all__ = ["TrainState", "create_train_state", "params_finite",
            "resolve_device", "make_gl_train_step", "make_gl_eval_step",
-           "metrics_to_host"]
+           "make_encode_step", "metrics_to_host"]
 
 
 @dataclass
@@ -182,6 +182,26 @@ def make_gl_eval_step(num_classes: int, tau: float, epsilon="auto",
         pred = laplace_learning(features, y, tau=tau, epsilon=epsilon, k=k,
                                 solver=solver)
         return torch.argmax(pred, dim=1)
+
+    return step
+
+
+def make_encode_step(norm=None, device="cuda") -> Callable:
+    """Feature-extraction step (the reference's loader_to_numpy): the
+    encoder in eval mode (BN running statistics), the L2-normalized
+    features only.  ``step(state, images)`` returns the (B, feat_dim)
+    features on the device.  ``norm=(mean, std)``: accept uint8 batches and
+    normalize on the device.  The batch is cast to the parameters' dtype, so
+    a float64 model (on the CPU) gives float64 features."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def step(state: TrainState, images):
+        model = state.model
+        model.eval()
+        x = _device_normalize(_to_device(images, dev), norm)
+        _, features = model(x.to(next(model.parameters()).dtype))
+        return features
 
     return step
 

@@ -13,6 +13,8 @@ from graphlearninglayer_tpu_torch.data import CHANNEL_STATS
 from graphlearninglayer_tpu_torch.models import BuildNet
 from graphlearninglayer_tpu_torch.ops import dense_mode as tdm
 from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
+from graphlearninglayer_tpu_torch.ops.knn import knn_tiled
 from graphlearninglayer_tpu_torch.train import (create_train_state,
                                                 make_gl_train_step,
                                                 make_lr_schedule,
@@ -67,3 +69,55 @@ def test_train_step_runs_on_card_through_k1(cuda_device):
     host = metrics_to_host(metrics)
     assert np.isfinite(host["loss"]) and host["params_finite"]
     assert host["chol_info"] == 0
+
+
+def _knn_features(n, d, seed):
+    gen = torch.Generator().manual_seed(seed)
+    centers = 2.0 * torch.randn(10, d, generator=gen)
+    labels = torch.randint(0, 10, (n,), generator=gen)
+    x = centers[labels] + torch.randn(n, d, generator=gen)
+    return torch.nn.functional.normalize(x, dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(1500, 128, 25), (1001, 100, 25),
+                                   (300, 7, 64)])
+def test_knn_kernel_matches_plain_on_card(cuda_device, n, d, k):
+    """K2 against its plain version: the same neighbor sets on every row
+    whose k-th and (k+1)-th distances are more than 1e-5 relative apart
+    (closer pairs may swap under float32 rounding), dist2 within 1e-5,
+    self first; the ragged n and d are masked in the kernel."""
+    x = _knn_features(n, d, seed=n).to(cuda_device)
+    before = k2.fused_knn.launches
+    nbr, dist2 = k2.fused_knn(x, k)
+    torch.cuda.synchronize()
+    assert k2.fused_knn.launches == before + 1
+    assert nbr.dtype == torch.int64 and dist2.dtype == torch.float32
+    assert torch.equal(nbr[:, 0], torch.arange(n, device=cuda_device))
+    kk = min(k + 1, n)
+    pn, pd = k2.fused_knn_plain(x, kk, 512)
+    safe = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    if kk > k:
+        safe = (pd[:, k] - pd[:, k - 1]) > 1e-5 * pd[:, k - 1]
+    same = (torch.sort(nbr, 1).values
+            == torch.sort(pn[:, :k], 1).values).all(1)
+    assert bool(same[safe].all())
+    assert (dist2 - pd[:, :k]).abs().max().item() <= 1e-5
+    with pytest.raises(TypeError, match="float32"):
+        k2.fused_knn(x.double(), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.fused_knn(x.T.contiguous().T, k)
+
+
+@pytest.mark.cuda
+def test_knn_tiled_on_card_goes_through_k2(cuda_device):
+    x = _knn_features(700, 64, seed=3).to(cuda_device)
+    before = k2.fused_knn.launches
+    nbr, dist2 = knn_tiled(x, 50)
+    assert k2.fused_knn.launches == before + 1
+    assert nbr.shape == (700, 50) and dist2.dtype == torch.float32
+    with pytest.raises(ValueError, match="k <= 64"):
+        knn_tiled(x, 65)
+    # the kernel's dtype contract holds through knn_tiled: no silent cast
+    with pytest.raises(TypeError, match="float32"):
+        knn_tiled(x.double(), 50)
