@@ -47,6 +47,23 @@ each:
   transductive_eval  the eval main path: test_gl_transductive with the
           trained float32 state over 250 + 50,000 + 10,000 synthetic
           images, across which K2's launch count is read;
+  k3      kernel K3 (affinity times a precomputed mask) against its plain
+          version at n=1500, d=128 with the KNN mask (k=25, no self loops)
+          of the port's knn, at n=300, and with a fixed eps: max |diff|
+          <= 1e-6, CUDA-event times and the reckoned bound (no path calls
+          K3);
+  op_edge laplace_learning in edge mode with the Cholesky and then the CG
+          solver, forward + backward on the card at the op's shape, against
+          the port's float64 CPU result and against dense mode on the card,
+          with the CG iterations;
+  fullysup  the driver through its CLI entry point, main(argv), in a
+          temporary directory: ResNet-18 GL training at full width for 2
+          epochs of 40 steps over the synthetic stand-in for CIFAR-10 (50,000
+          + 10,000 images at 32x32x3), with native augmentation, a traced
+          second epoch and three transductive evals of 60,250 nodes through
+          one cache, across which K1's and K2's launch counts are read; then
+          three 1-epoch runs at 5,000 + 1,000 images: a resume from the main
+          run's last checkpoint, the MLP branch, and --gl_solver cg;
 
 then the ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and the final ``{"ok": true, ...}`` line.  Any failed check
@@ -72,6 +89,15 @@ EVAL_N = EVAL_BASE + EVAL_TRAIN + EVAL_TEST
 PARITY_N = 10_250
 K2_TOL = 1e-5            # max |dist2 kernel - plain|
 K2_MAX_DIFFER = 1e-3     # share of rows whose neighbor sets may differ
+K3_TOL = 1e-6
+# the driver run: synthetic CIFAR-10 geometry, full width, 2 epochs
+DRIVER_TRAIN, DRIVER_TEST, DRIVER_EPOCHS = 50_000, 10_000, 2
+DRIVER_ARGV = [
+    "--sup_train_type", "gl", "--dataset", "cifar10", "--model", "resnet18",
+    "--head_type", "mlp", "--batch_size", str(N_BATCH),
+    "--num_train", str(N_BASE), "--knn_k", str(K), "--epsilon", "auto",
+    "--temp", str(TAU), "--tau", str(EVAL_TAU), "--cosine",
+    "--augment_type_sup", "strong", "--plot_freq_ss", "1"]
 # H100 SXM peaks from NVIDIA's data sheet, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -432,12 +458,12 @@ def _train_run(label, dtype, cudnn_tf32, steps, data, rng):
     check(launches == steps, f"{label}: K1 launched once per step "
           f"({launches} in {steps} steps)")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    median = statistics.median(times[1:])
     emit("train", run=label, cudnn_tf32=cudnn_tf32, matmul_tf32=False,
-         steps=steps,
-         median_ms_per_step=statistics.median(times[1:]),
+         steps=steps, median_ms_per_step=median,
          first_step_ms=times[0], peak_mem_gib=peak, k1_launches=launches,
          first_loss=losses[0], last_loss=losses[-1])
-    return state, step
+    return state, step, median
 
 
 def phase_parity():
@@ -490,6 +516,16 @@ def phase_parity():
           f"card/CPU param err {param_err} <= 2% of the update {update}")
 
 
+def _union(spans) -> float:
+    """Total length covered by sorted (start, end) spans."""
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
 def profile_window(run, steps: int, groups=PROFILE_GROUPS) -> dict:
     """torch.profiler over ``steps`` calls of ``run()``: device time by
     kernel and kernel group, and the device's busy share of the host-clock
@@ -510,12 +546,8 @@ def profile_window(run, steps: int, groups=PROFILE_GROUPS) -> dict:
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = _union(sorted((e.time_range.start, e.time_range.end)
+                         for e in kernels))
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     by_group: dict[str, float] = {}
@@ -553,8 +585,8 @@ def phase_profile(state, step, data, rng, steps=3):
 
 
 def phase_train():
-    """The training main path; returns K1's launches in it and the float32
-    state it trained."""
+    """The training main path; returns K1's launches in it, the float32
+    state it trained and the TF32 run's median ms per step."""
     import numpy as np
     import torch
 
@@ -569,11 +601,12 @@ def phase_train():
     rng = np.random.default_rng(SEED)
 
     k1.fused_affinity_sym.launches = 0
-    f32_state, f32_step = _train_run("f32", torch.float32, False, F32_STEPS,
-                                     data, rng)
-    _train_run("tf32", torch.float32, True, TF32_STEPS, data, rng)
-    state, _ = _train_run("bf16", torch.bfloat16, False, BF16_STEPS, data,
-                          rng)
+    f32_state, f32_step, _ = _train_run("f32", torch.float32, False,
+                                        F32_STEPS, data, rng)
+    _, _, tf32_ms = _train_run("tf32", torch.float32, True, TF32_STEPS, data,
+                               rng)
+    state, _, _ = _train_run("bf16", torch.bfloat16, False, BF16_STEPS, data,
+                             rng)
     eval_step = make_gl_eval_step(NUM_CLASSES, tau=TAU, epsilon="auto", k=K,
                                   norm=CHANNEL_STATS["cifar10"],
                                   device="cuda")
@@ -588,7 +621,7 @@ def phase_train():
     emit("eval", base=N_BASE, test=N_BATCH, acc=float(acc),
          chance=1.0 / NUM_CLASSES)
     phase_profile(f32_state, f32_step, data, rng)
-    return launches, f32_state
+    return launches, f32_state, tf32_ms
 
 
 def phase_solve():
@@ -717,6 +750,246 @@ def phase_transductive_eval(state):
     return launches
 
 
+def phase_k3():
+    """K3 against its plain version; returns its stats at n=1500 and the
+    launches of the phase's checked calls.
+
+    The mask is the port's KNN indicator (k=25) without self loops, as the
+    graph uses it (the JAX kernel test takes the final graph mask, which
+    has none).  On the diagonal d2 = |x|^2 + |x|^2 - 2 x.x is pure float32
+    cancellation, and W = exp(-4 d2 / eps^2) ~ 1 there turns the two
+    versions' different summation orders into differences above 1e-6; the
+    error with the self loops kept is reported beside, not held to 1e-6."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.ops.kernels import affinity as k3
+    from graphlearninglayer_tpu_torch.ops.knn import knn
+
+    dev = torch.device("cuda")
+    result, errs = {}, []
+    k3.fused_affinity.launches = 0
+    for n, eps_mode in ((1500, "auto"), (300, "auto"), (1500, "fixed")):
+        x, _ = normalized_features(n, 128, SEED + 3 * n)
+        x = x.to(dev)
+        nbr, d2 = knn(x, K)
+        knn_mask = torch.zeros((n, n), device=dev).scatter_(1, nbr, 1.0)
+        mask = knn_mask.fill_diagonal_(0.0).contiguous()
+        eps = (torch.sqrt(d2[:, -1]).clamp_min(1e-6) if eps_mode == "auto"
+               else torch.full((n,), 1.5, device=dev))
+        args = (x, eps.contiguous(), mask)
+        got = k3.fused_affinity(*args)
+        want = k3.fused_affinity_plain(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        errs.append(err)
+        check(err <= K3_TOL, f"K3 max |kernel - plain| {err} <= {K3_TOL} "
+              f"at n={n}, eps {eps_mode}")
+        check(int((got > 0).sum()) == n * (K - 1), "K3 keeps every edge")
+        launches = k3.fused_affinity.launches
+        with_self = mask.clone().fill_diagonal_(1.0)
+        err_self = (k3.fused_affinity(x, args[1], with_self)
+                    - k3.fused_affinity_plain(x, args[1], with_self)
+                    ).abs().max().item()
+        ms = cuda_ms(lambda: k3.fused_affinity(*args))
+        plain_ms = cuda_ms(lambda: k3.fused_affinity_plain(*args))
+        k3.fused_affinity.launches = launches   # only checked calls count
+        bound_ms, bound_by = k1_bound_ms(n, 128)
+        emit("k3", n=n, d=128, k=K, eps=eps_mode, max_abs_err=err,
+             tol=K3_TOL, max_abs_err_with_self_loops=err_self, ms=ms,
+             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+             library_ms=None,
+             library="none: no single PyTorch call computes it")
+        if n == 1500 and eps_mode == "auto":
+            result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+    result["max_abs_err"] = max(errs)
+    result["launches"] = k3.fused_affinity.launches
+    check(result["launches"] == 3, "K3 launched once per checked call")
+    return result
+
+
+def phase_op_edge():
+    """laplace_learning(mode='edge') with both solvers on the card, against
+    the port's float64 CPU result and against dense mode on the card."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.ops import laplace_learning
+
+    n, k_lab, l = N_BASE + N_BATCH, N_BASE, NUM_CLASSES
+    x, seed = normalized_features(n, 128, SEED, min_gap=2e-6)
+    gen = torch.Generator().manual_seed(seed)
+    labels = torch.randint(0, l, (k_lab,), generator=gen)
+    y = torch.nn.functional.one_hot(labels, l).double()
+    gbar = torch.randn(n - k_lab, l, generator=gen, dtype=torch.float64)
+
+    def run(xv, yv, gv, **kw):
+        xv = xv.clone().requires_grad_(True)
+        stats = {}
+        pred = laplace_learning(xv, yv, tau=TAU, epsilon="auto", k=K,
+                                stats=stats, **kw)
+        (pred * gv).sum().backward()
+        return pred.detach(), xv.grad, stats
+
+    dev = torch.device("cuda")
+    xc, yc, gc = x.to(dev), y.float().to(dev), gbar.float().to(dev)
+    dense, dense_gx, _ = run(xc, yc, gc, mode="dense")
+    for solver in ("cholesky", "cg"):
+        want, want_gx, _ = run(x.double(), y, gbar, mode="edge",
+                               solver=solver)
+        pred, gx, stats = run(xc, yc, gc, mode="edge", solver=solver)
+        torch.cuda.synchronize()
+        scale = want_gx.abs().max()
+        pred_err = (pred.double().cpu() - want).abs().max().item()
+        gx_rel = ((gx.double().cpu() - want_gx).abs().max() / scale).item()
+        dense_err = (pred - dense).abs().max().item()
+        dense_rel = ((gx - dense_gx).abs().max().double().cpu()
+                     / scale).item()
+        ms = cuda_ms(lambda: run(xc, yc, gc, mode="edge", solver=solver),
+                     reps=5 if solver == "cg" else 20, warmup=1)
+        emit("op_edge", solver=solver, n=n, k_lab=k_lab, l=l, d=128, k=K,
+             tau=TAU, input_seed=seed, pred_max_abs_err=pred_err,
+             pred_tol=1e-4, grad_max_rel_err=gx_rel, grad_tol=1e-3,
+             vs_dense_pred_err=dense_err, vs_dense_grad_rel_err=dense_rel,
+             cg_iters=stats.get("cg_iters"),
+             cg_iters_bwd=stats.get("cg_iters_bwd"),
+             chol_info=int(stats["chol_info"]) if "chol_info" in stats
+             else None, fwd_bwd_ms=ms)
+        check(pred_err <= 1e-4, f"edge {solver} pred err {pred_err} <= 1e-4")
+        check(gx_rel <= 1e-3, f"edge {solver} grad rel err {gx_rel} <= 1e-3")
+        check(dense_err <= 1e-4 and dense_rel <= 1e-3,
+              f"edge {solver} agrees with dense mode ({dense_err}, "
+              f"{dense_rel})")
+
+
+def _trace_busy_share(trace_dir: str) -> dict:
+    """Device busy share over the traced epoch, from the Chrome trace that
+    the driver's GLL_PROFILE_DIR hook wrote: the union of kernel, memcpy
+    and memset spans over the span of all traced events."""
+    import glob
+    import os
+
+    files = sorted(glob.glob(os.path.join(trace_dir, "*.json")))
+    check(len(files) == 1, f"one trace file in {trace_dir} ({files})")
+    with open(files[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    check(bool(dev), "the trace holds device activity")
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy = _union(dev)
+    return dict(trace_mb=os.path.getsize(files[0]) / 2**20,
+                window_ms=(t1 - t0) / 1e3, device_busy_ms=busy / 1e3,
+                busy_share=busy / (t1 - t0), device_spans=len(dev))
+
+
+def phase_fullysup(train_tf32_ms: float) -> dict:
+    """The driver's main path and three short runs; returns K1's and K2's
+    launches in the main run.  Every eval must converge (residual
+    <= 1e-10) with its accuracy above chance."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
+    from graphlearninglayer_tpu_torch.train import fullysup
+
+    torch.backends.cudnn.allow_tf32 = True    # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    home = os.getcwd()
+    work = tempfile.mkdtemp(prefix="gll_fullysup_")
+    os.environ["GLL_PROFILE_DIR"] = os.path.join(work, "trace")
+    os.environ["GLL_PROFILE_EPOCH"] = str(DRIVER_EPOCHS)
+    try:
+        os.chdir(work)
+        t0 = time.perf_counter()
+        k1.fused_affinity_sym.launches = 0
+        k2.fused_knn.launches = 0
+        rec = fullysup.main(DRIVER_ARGV + [
+            "--synth_n_train", str(DRIVER_TRAIN),
+            "--synth_n_test", str(DRIVER_TEST),
+            "--epochs", str(DRIVER_EPOCHS)])
+        k1_launches = k1.fused_affinity_sym.launches
+        k2_launches = k2.fused_knn.launches
+        wall = time.perf_counter() - t0
+        del os.environ["GLL_PROFILE_DIR"]
+        steps = rec["steps_per_epoch"]
+        ms_per_step = [1e3 * s / steps for s in rec["epoch_s"]]
+        trace = _trace_busy_share(os.path.join(work, "trace"))
+        evals = [{k: e[k] for k in ("n_nodes", "cg_iters", "cg_err",
+                                    "encode_s", "solve_s", "acc")}
+                 for e in rec["eval"]]
+        emit("fullysup", argv=DRIVER_ARGV, train=DRIVER_TRAIN,
+             test=DRIVER_TEST, epochs=DRIVER_EPOCHS, steps_per_epoch=steps,
+             loader_backend=rec["loader_backend"], cudnn_tf32=True,
+             matmul_tf32=False, wall_s=wall,
+             epoch_s=rec["epoch_s"], ms_per_step=ms_per_step,
+             ms_per_step_note=("epoch 1 includes the first steps' warm-up; "
+                               "epoch 2 runs under the profiler"),
+             train_phase_tf32_ms_per_step=train_tf32_ms,
+             host_share_epoch1=1 - train_tf32_ms / ms_per_step[0],
+             traced_epoch=DRIVER_EPOCHS, trace=trace, evals=evals,
+             test_acc=rec["test_acc"], loss=rec["loss"],
+             train_acc=rec["train_acc"], chance=100.0 / NUM_CLASSES,
+             k1_launches=k1_launches, k2_launches=k2_launches)
+        check(rec["loader_backend"] == "native", "native augmentation")
+        check(steps == DRIVER_TRAIN // N_BATCH, "40 steps an epoch")
+        check(len(rec["loss"]) == DRIVER_EPOCHS
+              and all(math.isfinite(v) for v in rec["loss"]),
+              "finite loss every epoch")
+        check(len(evals) == DRIVER_EPOCHS + 1
+              and all(e["n_nodes"] == EVAL_N for e in evals),
+              f"{DRIVER_EPOCHS + 1} evals of {EVAL_N} nodes")
+        check(all(e["cg_err"] <= 1e-10 for e in evals),
+              f"every eval's CG converged ({[e['cg_err'] for e in evals]})")
+        check(k1_launches >= DRIVER_EPOCHS * steps,
+              f"K1 launched on every GL step ({k1_launches})")
+        check(k2_launches >= len(evals),
+              f"K2 launched on every eval ({k2_launches})")
+        check(all(a > 100.0 / NUM_CLASSES for a in rec["test_acc"]),
+              f"every eval's accuracy above chance ({rec['test_acc']})")
+        last = os.path.join(work, "save", "_Sup_and_SS_gl",
+                            os.listdir(os.path.join(work, "save",
+                                                    "_Sup_and_SS_gl"))[0],
+                            "last")
+        check(os.path.isfile(os.path.join(
+            last, f"ckpt_epoch_{DRIVER_EPOCHS}.pth")), "last checkpoint")
+
+        small = ["--synth_n_train", "5000", "--synth_n_test", "1000",
+                 "--epochs", "1"]
+        runs = {
+            "resume": ["--cp_load_path", last, "--start_epochs",
+                       str(DRIVER_EPOCHS), "--train_prefix", "resume"],
+            "mlp": ["--sup_train_type", "mlp", "--train_prefix", "mlp"],
+            "cg": ["--gl_solver", "cg", "--train_prefix", "cg"],
+        }
+        for name, extra in runs.items():
+            t1 = time.perf_counter()
+            # a flag given twice takes its last value
+            r = fullysup.main(DRIVER_ARGV + small + extra)
+            emit("fullysup_short", run=name, wall_s=time.perf_counter() - t1,
+                 loss=r["loss"], test_acc=r["test_acc"],
+                 cg_iters_per_step=r["cg_iters"],
+                 ms_per_step=[1e3 * s / r["steps_per_epoch"]
+                              for s in r["epoch_s"]])
+            check(len(r["loss"]) == 1 and math.isfinite(r["loss"][0]),
+                  f"{name}: one finite epoch")
+            check(len(r["test_acc"]) == 2, f"{name}: two evals")
+            if name == "cg":
+                check(bool(r["cg_iters"]) and r["cg_iters"][0] > 0,
+                      "cg: CG iterations recorded")
+    finally:
+        os.environ.pop("GLL_PROFILE_DIR", None)
+        os.environ.pop("GLL_PROFILE_EPOCH", None)
+        os.chdir(home)
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(k1_launches=k1_launches, k2_launches=k2_launches)
+
+
 def main() -> int:
     import torch
 
@@ -730,11 +1003,16 @@ def main() -> int:
     k1_stats = phase_k1()
     k2_stats = phase_k2()
     phase_op()
-    k1_launches, state = phase_train()
+    k1_launches, state, tf32_ms = phase_train()
     phase_parity()
     phase_solve()
     phase_solve_parity()
     k2_launches = phase_transductive_eval(state)
+    del state
+    torch.cuda.empty_cache()
+    k3_stats = phase_k3()
+    phase_op_edge()
+    phase_fullysup(tf32_ms)
     k1_main, k2_main = k1_stats[1500], k2_stats[EVAL_N]
     kernels = [{
         "name": "fused_affinity_sym",
@@ -762,6 +1040,19 @@ def main() -> int:
         "bound_ms": k2_main["bound_ms"],
         "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"],
+    }, {
+        "name": "fused_affinity",
+        "route": "cuda",
+        "source": "graphlearninglayer_tpu_torch/ops/kernels/csrc/"
+                  "affinity_sym.cu",
+        "replaces": "graphlearninglayer_tpu/ops/kernels/affinity.py:113",
+        "launches": k3_stats["launches"],
+        "max_abs_err": k3_stats["max_abs_err"],
+        "ms": k3_stats["ms"],
+        "plain_ms": k3_stats["plain_ms"],
+        "bound_ms": k3_stats["bound_ms"],
+        "bound_by": k3_stats["bound_by"],
+        "library_ms": None,
     }]
     emit("done", wall_s=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))

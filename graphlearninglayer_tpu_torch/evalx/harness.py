@@ -1,12 +1,14 @@
-"""Evaluation harness: the transductive eval over the whole dataset.
+"""Evaluation harnesses: per-batch GL / MLP eval and the transductive eval
+over the whole dataset.
 
-Twin of ``graphlearninglayer_tpu/evalx/harness.py`` (``encode_dataset`` and
-the single-device branch of ``test_gl_transductive``): encode base + train +
-test images on the device, then one k=50 graph over all of them and one CG
-solve (``ops.transductive_laplace``); accuracy on the test slice.
+Twin of ``graphlearninglayer_tpu/evalx/harness.py`` (``encode_dataset``,
+``test_network`` and the single-device branch of ``test_gl_transductive``).
+The transductive eval encodes base + train + test images on the device,
+then builds one k=50 graph over all of them and runs one CG solve
+(``ops.transductive_laplace``); accuracy on the test slice.
 
-Not ported yet: ``test_network``, ``encode_dataset_resident`` and the
-sharded eval (``mesh=``, ``resident=`` raise ``NotImplementedError``).
+Not ported yet: ``encode_dataset_resident`` and the sharded eval (``mesh=``,
+``resident=`` raise ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -19,9 +21,10 @@ import torch
 
 from ..ops import transductive_laplace
 from ..ops.transductive import eval_debug
-from ..train.trainer import TrainState, make_encode_step, resolve_device
+from ..train.trainer import (TrainState, make_encode_step, make_gl_eval_step,
+                             make_mlp_eval_step, resolve_device)
 
-__all__ = ["encode_dataset", "test_gl_transductive"]
+__all__ = ["encode_dataset", "test_network", "test_gl_transductive"]
 
 
 def encode_dataset(encode_step, state: TrainState, images: np.ndarray,
@@ -46,6 +49,60 @@ def encode_dataset(encode_step, state: TrainState, images: np.ndarray,
     return torch.cat(feats)
 
 
+def test_network(state: TrainState, base_images, base_labels, test_images,
+                 test_labels, num_classes: int, tau: float, epsilon="auto",
+                 k: int = 25, batch_size: int = 1250,
+                 solver: str = "cholesky", normalize_fn=None,
+                 predictor: str = "GL", norm=None, tail: str = "exact",
+                 device="cuda") -> float:
+    """Per-batch network accuracy in percent (the reference's
+    test_network).
+
+    predictor='GL': each test batch is classified by the network + graph
+    head against the single base batch (pass the driver's ``--temp`` as
+    ``tau``).  predictor='MLP': the aux classifier head alone.
+
+    ``tail``: what to do with a final test batch shorter than
+    ``batch_size``.  'exact' runs it as a smaller graph (the reference's
+    semantics); 'pad' repeats rows up to ``batch_size`` and scores only the
+    real rows (the duplicated rows change the tail graph's KNN lists and
+    bandwidths, so tail scores deviate from the reference).
+
+    ``norm=(mean, std)``: ship raw uint8 batches and normalize on the
+    device; otherwise ``normalize_fn`` runs on the host.  The correct counts
+    stay on the device until every batch is dispatched."""
+    if tail not in ("exact", "pad"):
+        raise ValueError(f"unknown tail mode {tail!r}")
+    dev = resolve_device(device)
+    if predictor == "GL":
+        gl_step = make_gl_eval_step(num_classes, tau, epsilon, k, solver,
+                                    norm=norm, device=dev)
+    elif predictor == "MLP":
+        mlp_step = make_mlp_eval_step(norm=norm, device=dev)
+    else:
+        raise ValueError(predictor)
+    host_norm = normalize_fn if (normalize_fn is not None and norm is None) \
+        else (lambda a: a)
+    base_x = host_norm(np.asarray(base_images))
+    labels = torch.as_tensor(np.asarray(test_labels), device=dev)
+    n = len(test_images)
+    correct = []
+    for i in range(0, n, batch_size):
+        chunk = test_images[i:i + batch_size]
+        real = len(chunk)
+        if real < batch_size and tail == "pad":
+            chunk = chunk[np.arange(batch_size) % real]
+        x = host_norm(np.asarray(chunk))
+        pred = (gl_step(state, base_x, base_labels, x) if predictor == "GL"
+                else mlp_step(state, x))
+        correct.append(torch.sum(pred[:real] == labels[i:i + real]))
+    correct = int(torch.stack(correct).sum()) if correct else 0
+    acc = 100.0 * correct / max(n, 1)
+    print(f"Test set: Accuracy for {predictor} predictor: {correct}/{n} "
+          f"({acc:.2f}%)\n")
+    return acc
+
+
 def test_gl_transductive(state: TrainState, base_images, base_labels,
                          test_images, test_labels, normalize_fn,
                          num_classes: int, train_images=None,
@@ -60,8 +117,8 @@ def test_gl_transductive(state: TrainState, base_images, base_labels,
 
     ``norm=(mean, std)``: raw uint8 batches, normalized on the device
     (``normalize_fn`` is then unused).  ``cache``: an ``EvalGraphCache``
-    shared across eval epochs (permutation reuse, sticky budgets, CG warm
-    start; the result does not change).  ``stats``: an optional dict the
+    shared across eval epochs (permutation reuse, sticky budgets; the
+    result does not change).  ``stats``: an optional dict the
     eval fills with ``n_nodes``, ``encode_s``, ``solve_s`` (host clock, each
     ending in a device sync), ``cg_iters`` and ``cg_err``.
 

@@ -39,6 +39,9 @@ class BuildNet(nn.Module):
     float32 and the features leave as float32, because the graph op needs
     full-precision distances.
 
+    ``in_channel``: the input images' channels (1 for the MNIST family and
+    the grayscale synthetic set; the flax encoders infer it).
+
     ``generator``: draw the initial weights from this generator (PyTorch's
     default initialization schemes) instead of the global one.
     """
@@ -46,10 +49,11 @@ class BuildNet(nn.Module):
     def __init__(self, name: str = "resnet18", head: str = "mlp",
                  feat_dim: int = 128, num_classes: int = 10,
                  softmax: bool = True, dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 in_channel: int = 3):
         super().__init__()
         model_fn, dim_in = model_dict[name]
-        self.encoder = model_fn()
+        self.encoder = model_fn(in_channel=in_channel)
         if head == "linear":
             self.head = nn.Linear(dim_in, feat_dim)
         elif head == "mlp":

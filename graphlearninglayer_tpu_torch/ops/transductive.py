@@ -48,16 +48,25 @@ class EvalGraphCache:
     """Cross-eval amortization state for :func:`transductive_laplace`.
 
     Between eval epochs of one training run the features drift slowly, so
-    three pieces are reusable:
+    two pieces are reusable:
 
       * ``perm``: last eval's cluster permutation; the BSR plan skips its
         k-means pass (``bsr_plan_from_perm``).  Exact for any permutation;
         an overflow-fraction check forces a fresh plan once it is stale.
       * ``smax`` / ``ovf_cap``: sticky tile and overflow budgets, reused as
         long as they still cover the new graph.
-      * ``prev_pred``: last eval's solution as the CG warm start (the solve
-        still runs to tol=1e-10, so the result does not change; only the
-        iteration count drops).
+
+    Unlike the JAX package's cache, this one keeps no CG warm start: every
+    solve starts from zero.  The last eval's solution is a poor start once
+    the base set has been refreshed (the driver refreshes it every epoch by
+    default).  On a component of the graph that holds no labeled node the
+    zero start is exact, while the old solution leaves residual components
+    along eigenvalues near tau = 1e-8 that CG needs thousands of iterations
+    to remove, and in float32 it can break down.  On an H100, with the
+    warm start, the driver's evals of ResNet-18 features at 60,250 nodes
+    after one and two epochs took 7,285 and 87,079 CG iterations, the
+    second ending in NaN at chance accuracy (95 on the first, cold eval);
+    tests/test_torch_transductive.py shows the effect on the CPU.
 
     A cache is valid for one problem shape; an (n, k_lab, l) mismatch
     ignores it.  Pass one instance across calls.  ``shard_perm``,
@@ -74,20 +83,12 @@ class EvalGraphCache:
         self.perm = None          # device (n,) int64 (BSR plan)
         self.smax = None          # sticky slot budget
         self.ovf_cap = None       # sticky overflow budget
-        self.prev_pred = None     # device (n - k_lab, l)
         self.shard_perm = None
         self.shard_nd = None
         self.banded_skip = 0
 
     def matches(self, n: int, k_lab: int) -> bool:
         return self.n == n and self.k_lab == k_lab
-
-    def warm_start(self, n: int, k_lab: int, l: int):
-        """Previous solution if it fits this problem's shape, else None."""
-        if (self.matches(n, k_lab) and self.prev_pred is not None
-                and tuple(self.prev_pred.shape) == (n - k_lab, l)):
-            return self.prev_pred
-        return None
 
 
 def one_hot_encode(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
@@ -108,13 +109,9 @@ def _finish(result, tol: float = 1e-10, return_info: bool = False):
     return pred
 
 
-def _jacobi_cg(matvec, deg, y, tau, k_lab, x0=None):
+def _jacobi_cg(matvec, deg, y, tau, k_lab):
     """Pred = M cg(M Luu M, M (W_ul Y)) on the unlabeled rows, with
-    M = diag(Luu)^(-1/2).
-
-    ``x0``: optional warm start in prediction space (an earlier solve's
-    (m, l) output), converted to the preconditioned variable z = x / M.
-    Returns (pred, iters, final_err)."""
+    M = diag(Luu)^(-1/2).  Returns (pred, iters, final_err)."""
     n = deg.shape[0]
     m = n - k_lab
     dt = torch.promote_types(deg.dtype, y.dtype)
@@ -130,8 +127,7 @@ def _jacobi_cg(matvec, deg, y, tau, k_lab, x0=None):
         wp = matvec(F.pad(p, (0, 0, k_lab, 0)))[k_lab:]
         return mscale * (diag[:, None] * p - wp)
 
-    z0 = None if x0 is None else x0.to(rhs.dtype) / mscale
-    z, iters, err = stable_conjgrad(mv, mscale * rhs, z0, return_info=True)
+    z, iters, err = stable_conjgrad(mv, mscale * rhs, return_info=True)
     return mscale * z, iters, err
 
 
@@ -148,7 +144,7 @@ def _solve_scatter(g, y, tau: float):
                       y.shape[0])
 
 
-def _solve_sorted(g, y, tau: float, x0=None):
+def _solve_sorted(g, y, tau: float):
     w, _ = edge_weights(g)
     n, k = g.nbr.shape
     coefw = g.coef * w
@@ -165,28 +161,24 @@ def _solve_sorted(g, y, tau: float, x0=None):
         out = torch.sum(coefw[:, :, None] * p[g.nbr], dim=1)
         return out.index_add_(0, dst_s, c_s[:, None] * p[src_s])
 
-    return _jacobi_cg(matvec, sym_rowsum(g, w), y, tau, y.shape[0], x0)
+    return _jacobi_cg(matvec, sym_rowsum(g, w), y, tau, y.shape[0])
 
 
-def _solve_bsr(plan, y, block: int, smax: int, ovf_cap: int, tau: float,
-               x0=None):
+def _solve_bsr(plan, y, block: int, smax: int, ovf_cap: int, tau: float):
     gp = plan.gp
     k_lab = y.shape[0]
     w, _ = edge_weights(gp)
     mat = build_bsr_mat(plan, w, block, smax, ovf_cap)
     deg = sym_rowsum(gp, w)
     y_perm = y[plan.perm[:k_lab]]
-    # the warm start is in original unlabeled order; permuted row i
-    # (i >= k_lab) holds original row perm[i] (labeled rows sort first)
-    x0p = None if x0 is None else x0[plan.perm[k_lab:] - k_lab]
     out, iters, err = _jacobi_cg(lambda p: bsr_spmm(mat, p, gp.n), deg,
-                                 y_perm, tau, k_lab, x0p)
+                                 y_perm, tau, k_lab)
     # back to the original (unlabeled) row order
     return out[plan.inv[k_lab:] - k_lab], iters, err
 
 
 def _transductive_bsr(x, g, y, tau: float, block: int, max_tile_bytes: int,
-                      cache: EvalGraphCache | None = None, x0=None):
+                      cache: EvalGraphCache | None = None):
     """Two-stage BSR path: plan (reorder + block discovery), then the
     dense-tile CG.
 
@@ -195,8 +187,7 @@ def _transductive_bsr(x, g, y, tau: float, block: int, max_tile_bytes: int,
     ``max_tile_bytes``; leftover edges ride the COO overflow.  Returns None
     when the graph is small or hopeless (overflow above a quarter of the
     edges even at the budget cap): the caller falls back to 'sorted'.
-    ``cache`` reuses the previous permutation and budgets and warm-starts
-    the CG from ``x0``."""
+    ``cache`` reuses the previous permutation and budgets."""
     n = x.shape[0]
     k_lab = y.shape[0]
     if n < 4 * block:
@@ -268,9 +259,9 @@ def _transductive_bsr(x, g, y, tau: float, block: int, max_tile_bytes: int,
         ovf_cap = 0 if ovf == 0 else \
             -(-(ovf + max(ovf // 4, 2048)) // 16384) * 16384
     dbg(f"  [bsr: solve smax={smax} ovf_cap={ovf_cap} "
-        f"smax_min={smax_min} total={total} warm={x0 is not None}]",
+        f"smax_min={smax_min} total={total}]",
         flush=True)
-    res = _solve_bsr(plan, y, block, smax, ovf_cap, float(tau), x0)
+    res = _solve_bsr(plan, y, block, smax, ovf_cap, float(tau))
     if cache is not None:
         cache.n, cache.k_lab = n, k_lab
         cache.perm = plan.perm
@@ -294,7 +285,7 @@ def transductive_laplace(x, y, knn_num: int = 50, epsilon="auto",
 
     ``return_info=True`` returns (pred, cg_iters, final_err).  ``cache``: an
     :class:`EvalGraphCache` shared across calls (permutation reuse, sticky
-    budgets, CG warm start) without changing the result.  ``knn_block`` is
+    budgets) without changing the result.  ``knn_block`` is
     the plain KNN route's panel height (CPU tensors only).
     """
     if os.environ.get("GLL_BANDED_KNN", "0") == "1":
@@ -305,13 +296,10 @@ def transductive_laplace(x, y, knn_num: int = 50, epsilon="auto",
     if mode not in ("bsr", "sorted", "scatter", "ell"):
         raise ValueError(f"unknown mode {mode!r}")
     n, k_lab = int(x.shape[0]), int(y.shape[0])
-    x0 = (cache.warm_start(n, k_lab, int(y.shape[1]))
-          if cache is not None else None)
 
     def _done(res):
         if cache is not None:
             cache.n, cache.k_lab = n, k_lab
-            cache.prev_pred = res[0]
         return _finish(res, return_info=return_info)
 
     g = build_graph(x, knn_num, epsilon, tiled=True, block=knn_block)
@@ -320,7 +308,7 @@ def transductive_laplace(x, y, knn_num: int = 50, epsilon="auto",
         # memory, degrade to 'sorted' instead of ending a training run
         try:
             res = _transductive_bsr(x, g, y, float(tau), bsr_block,
-                                    bsr_max_tile_bytes, cache, x0)
+                                    bsr_max_tile_bytes, cache)
         except torch.cuda.OutOfMemoryError as e:
             print(f"transductive bsr mode failed "
                   f"({str(e).splitlines()[0][:120]}); falling back to sorted")
@@ -335,7 +323,7 @@ def transductive_laplace(x, y, knn_num: int = 50, epsilon="auto",
             return _done(res)
         mode = "sorted"                            # graph too dense to tile
     if mode == "sorted":
-        return _done(_solve_sorted(g, y, float(tau), x0))
+        return _done(_solve_sorted(g, y, float(tau)))
     if mode == "scatter":
         return _finish(_solve_scatter(g, y, float(tau)),
                        return_info=return_info)

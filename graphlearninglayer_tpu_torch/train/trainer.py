@@ -19,6 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -29,7 +30,8 @@ from .optim import make_optimizer
 
 __all__ = ["TrainState", "create_train_state", "params_finite",
            "resolve_device", "make_gl_train_step", "make_gl_eval_step",
-           "make_encode_step", "metrics_to_host"]
+           "make_mlp_train_step", "make_mlp_eval_step", "make_encode_step",
+           "metrics_to_host"]
 
 
 @dataclass
@@ -75,6 +77,8 @@ def params_finite(params: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 def _to_device(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, np.ndarray):
+        a = np.ascontiguousarray(a)  # torch takes no negative strides
     return torch.as_tensor(a).to(device, non_blocking=True)
 
 
@@ -124,10 +128,12 @@ def make_gl_train_step(num_classes: int, tau: float, epsilon="auto",
 
     ``step(state, base_images, base_labels, images, labels)`` returns
     ``(state, metrics, scores)``.  ``metrics`` holds device scalars:
-    ``loss``, ``acc``, ``params_finite``, ``chol_info`` (0 when the
-    Cholesky factorization succeeded), ``grad_norm`` and ``out_norm`` (the
-    op backward's ||dL/dP|| and ||dL/dX||).  ``norm=(mean, std)``: accept
-    uint8 batches and normalize on the device."""
+    ``loss``, ``acc``, ``params_finite``, ``grad_norm`` and ``out_norm``
+    (the op backward's ||dL/dP|| and ||dL/dX||), and ``chol_info`` (0 when
+    the Cholesky factorization succeeded) or, with ``solver='cg'``,
+    ``cg_iters`` (forward plus adjoint CG iterations).
+    ``norm=(mean, std)``: accept uint8 batches and normalize on the
+    device."""
     dev = resolve_device(device)
 
     def step(state: TrainState, base_images, base_labels, images, labels):
@@ -154,10 +160,41 @@ def make_gl_train_step(num_classes: int, tau: float, epsilon="auto",
         acc = torch.mean((torch.argmax(pred, dim=1) == labels).float())
         metrics = {"loss": loss.detach(), "acc": acc,
                    "params_finite": params_finite(model.parameters()),
-                   "chol_info": stats["chol_info"],
                    "grad_norm": stats["grad_norm"],
                    "out_norm": stats["out_norm"]}
+        if "chol_info" in stats:
+            metrics["chol_info"] = stats["chol_info"]
+        else:
+            metrics["cg_iters"] = torch.tensor(
+                stats["cg_iters"] + stats["cg_iters_bwd"], device=dev)
         return state, metrics, _scores(pred, labels, score_type)
+
+    return step
+
+
+def make_mlp_train_step(norm=None, device="cuda") -> Callable:
+    """MLP-branch step: the aux classifier head's probability outputs, the
+    custom CE on them, one optimizer update.  ``step(state, images,
+    labels)`` returns ``(state, metrics)`` with device scalars ``loss``,
+    ``acc`` and ``params_finite``.  ``norm``: see make_gl_train_step."""
+    dev = resolve_device(device)
+
+    def step(state: TrainState, images, labels):
+        model = state.model
+        model.train()
+        x = _device_normalize(_to_device(images, dev), norm)
+        labels = _to_device(labels, dev).long()
+        pred, _ = model(x)
+        loss = custom_ce_loss(pred, labels)
+        _zero_grads(model)
+        loss.backward()
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        acc = torch.mean((torch.argmax(pred.detach(), dim=1)
+                          == labels).float())
+        return state, {"loss": loss.detach(), "acc": acc,
+                       "params_finite": params_finite(model.parameters())}
 
     return step
 
@@ -181,6 +218,22 @@ def make_gl_eval_step(num_classes: int, tau: float, epsilon="auto",
         _, features = model(x)
         pred = laplace_learning(features, y, tau=tau, epsilon=epsilon, k=k,
                                 solver=solver)
+        return torch.argmax(pred, dim=1)
+
+    return step
+
+
+def make_mlp_eval_step(norm=None, device="cuda") -> Callable:
+    """test_network's MLP predictor: classify a test batch with the aux
+    classifier head alone.  ``step(state, images)`` returns the predicted
+    classes (device int64)."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def step(state: TrainState, images):
+        model = state.model
+        model.eval()
+        pred, _ = model(_device_normalize(_to_device(images, dev), norm))
         return torch.argmax(pred, dim=1)
 
     return step
@@ -216,8 +269,9 @@ def metrics_to_host(metrics: dict) -> dict:
     out = dict(zip(keys, vals))
     if "params_finite" in out:
         out["params_finite"] = bool(out["params_finite"])
-    if "chol_info" in out:
-        out["chol_info"] = int(out["chol_info"])
+    for key in ("chol_info", "cg_iters"):
+        if key in out:
+            out[key] = int(out[key])
     if "out_norm" in out:
         warn_exploding_grad(out.get("grad_norm"), out["out_norm"])
     return out

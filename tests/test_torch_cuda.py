@@ -121,3 +121,84 @@ def test_knn_tiled_on_card_goes_through_k2(cuda_device):
     # the kernel's dtype contract holds through knn_tiled: no silent cast
     with pytest.raises(TypeError, match="float32"):
         knn_tiled(x.double(), 50)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,epsilon", [(1500, "auto"), (300, "auto"),
+                                       (300, 1.5)])
+def test_k3_matches_plain_on_card(cuda_device, n, epsilon):
+    """K3 with the KNN mask (k=25, no self loops, as the JAX kernel test's
+    graph mask has none) against its plain version, within that test's bar
+    of 1e-6; ragged n needs no padding.  On the diagonal d2 is float32
+    cancellation and W ~ 1, so two summation orders differ there by more
+    than 1e-6."""
+    gen = torch.Generator().manual_seed(n)
+    x = torch.nn.functional.normalize(torch.randn(n, 128, generator=gen),
+                                      dim=1)
+    g = tdm.build_dense_graph(x.double(), 25, epsilon)
+    mask = g.m_raw.clone().fill_diagonal_(0.0)
+    args = [t.float().to(cuda_device) for t in (x, g.eps, mask)]
+    before = k1.fused_affinity.launches
+    got = k1.fused_affinity(*args)
+    torch.cuda.synchronize()
+    assert k1.fused_affinity.launches == before + 1
+    want = k1.fused_affinity_plain(*args)
+    assert (got - want).abs().max().item() <= 1e-6
+    with pytest.raises(TypeError, match="float32"):
+        k1.fused_affinity(*(a.double() for a in args))
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.fused_affinity(args[0], args[1], args[2].T)
+
+
+def _gapped_features(n, d, k, seed):
+    """Unit features whose k-th and (k+1)-th neighbor distances differ by
+    at least 1e-5 on every row, so that float32 and float64 pick the same
+    graph."""
+    while True:
+        gen = torch.Generator().manual_seed(seed)
+        x = torch.nn.functional.normalize(torch.randn(n, d, generator=gen),
+                                          dim=1)
+        d2 = torch.cdist(x.double(), x.double()).pow(2)
+        d2.fill_diagonal_(-1.0)
+        s = torch.sort(d2, dim=1).values
+        if (s[:, k] - s[:, k - 1]).min().item() >= 1e-5:
+            return x
+        seed += 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["cholesky", "cg"])
+def test_edge_mode_on_card_matches_cpu_float64(cuda_device, solver):
+    """Edge mode forward and backward in float32 on the card against the
+    port in float64 on the CPU (the bars of chip_smoke.py's op phase:
+    pred 1e-4, dX 1e-3 of its largest entry), and against dense mode on
+    the card."""
+    from graphlearninglayer_tpu_torch.ops import laplace_learning
+
+    n, k_lab, l, k = 600, 100, 5, 10
+    x = _gapped_features(n, 32, k, 0)
+    gen = torch.Generator().manual_seed(1)
+    y = torch.nn.functional.one_hot(torch.randint(0, l, (k_lab,),
+                                                  generator=gen), l)
+    gbar = torch.randn(n - k_lab, l, generator=gen, dtype=torch.float64)
+
+    def run(xv, yv, gv, **kw):
+        xv = xv.clone().requires_grad_(True)
+        stats = {}
+        pred = laplace_learning(xv, yv, tau=0.07, k=k, stats=stats, **kw)
+        (pred * gv).sum().backward()
+        return pred.detach().double().cpu(), xv.grad.double().cpu(), stats
+
+    want, want_gx, _ = run(x.double(), y.double(), gbar, mode="edge",
+                           solver=solver)
+    args = (x.to(cuda_device), y.float().to(cuda_device),
+            gbar.float().to(cuda_device))
+    pred, gx, stats = run(*args, mode="edge", solver=solver)
+    scale = want_gx.abs().max()
+    assert (pred - want).abs().max().item() <= 1e-4
+    assert ((gx - want_gx).abs().max() / scale).item() <= 1e-3
+    if solver == "cg":
+        assert stats["cg_iters"] > 0 and stats["cg_iters_bwd"] > 0
+    dense, dense_gx, _ = run(*args, mode="dense")
+    assert (pred - dense).abs().max().item() <= 1e-4
+    assert ((gx - dense_gx).abs().max() / scale).item() <= 1e-3

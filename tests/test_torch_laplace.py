@@ -93,11 +93,18 @@ def test_every_row_gets_gradient_and_stats_are_filled(rng):
                                torch.linalg.vector_norm(xt.grad))
 
 
-def test_mode_rules():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        laplace_learning(torch.zeros(4097, 2), torch.zeros(10, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        laplace_learning(torch.zeros(50, 2), torch.zeros(10, 2), solver="cg")
+def test_mode_rules(rng, monkeypatch):
+    # mode='auto' takes edge mode above DENSE_MAX_N nodes or with CG
+    # (tests/test_torch_laplace_edge.py holds edge mode against JAX)
+    x, y = _problem(rng, n=50, k_lab=10, l=3)
+    xt, yt = torch.tensor(x), torch.tensor(y)
+    edge = laplace_learning(xt, yt, tau=0.07, k=6, mode="edge")
+    monkeypatch.setattr(tlap, "DENSE_MAX_N", 49)
+    torch.testing.assert_close(laplace_learning(xt, yt, tau=0.07, k=6), edge,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        laplace_learning(xt, yt, tau=0.07, k=6, solver="cg"), edge,
+        rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="requires solver='cholesky'"):
         laplace_learning(torch.zeros(50, 2), torch.zeros(10, 2), mode="dense",
                          solver="cg")

@@ -19,6 +19,16 @@ from graphlearninglayer_tpu_torch.models import BuildNet, l2_normalize
 from graphlearninglayer_tpu_torch.utils import params_from_jax
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These CPU ops are tiny: one thread runs them faster, and the suite's
+    parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_model(head, rng):
     """JAX BuildNet with randomized BN affine params and running stats, so
     that every BN leaf is carried across and exercised."""

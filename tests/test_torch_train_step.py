@@ -37,6 +37,16 @@ from graphlearninglayer_tpu_torch.train import (create_train_state,
 from graphlearninglayer_tpu_torch.utils import params_from_jax
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These CPU ops are tiny: one thread runs them faster, and the suite's
+    parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NUM_CLASSES, K, TAU = 4, 5, 0.07
 SCHEDULE = dict(learning_rate=0.01, epochs=5, steps_per_epoch=10)
 NORM = CHANNEL_STATS["cifar10"]

@@ -3,7 +3,8 @@ package on clustered float64 graphs (n = 600, k = 12, 64-node BSR blocks).
 
 Both sides do the same arithmetic in another summation order, so the bar is
 max |pred difference| <= 1e-8, identical argmax and an equal CG iteration
-count, in every matvec mode and with the cross-eval cache.
+count, in every matvec mode and with the cross-eval cache (which, unlike
+the JAX package's, keeps no CG warm start: see ``EvalGraphCache``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +17,17 @@ from graphlearninglayer_tpu.ops import transductive as jt
 from graphlearninglayer_tpu_torch.ops import EvalGraphCache
 from graphlearninglayer_tpu_torch.ops import bsr as tbsr
 from graphlearninglayer_tpu_torch.ops import graph as tg
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These CPU ops are tiny: one thread runs them faster, and the suite's
+    parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N, L, K_LAB, KNN, BLOCK = 600, 5, 60, 12, 64
 
@@ -51,7 +63,7 @@ def test_transductive_laplace_matches_jax(mode):
     # bsr mode really tiled this graph (no fall-back to 'sorted'), with
     # the JAX package's node permutation and budgets
     assert (cache.perm is not None) == (mode == "bsr")
-    assert (cache.prev_pred is not None) == (mode in ("bsr", "sorted"))
+    assert cache.matches(N, K_LAB) == (mode in ("bsr", "sorted"))
     if mode == "bsr":
         np.testing.assert_array_equal(cache.perm.numpy(),
                                       np.asarray(jcache.perm))
@@ -95,8 +107,10 @@ def test_bsr_plan_and_product():
 
 def test_eval_cache_warm_start_and_perm_reuse_match_jax(monkeypatch):
     """Two evals on slowly drifting features through one cache, on both
-    sides: equal results and iteration counts, the k-means pass skipped on
-    the second eval, sticky budgets, and fewer iterations than cold."""
+    sides: equal results, the k-means pass skipped on the second eval and
+    the same sticky budgets and permutation.  The port's cache keeps no CG
+    warm start, so its second solve takes a cold solve's iterations, not
+    the JAX cache's warm count."""
     x1, lab = _clustered(seed=11)
     x2 = x1 + 0.02 * np.random.default_rng(12).normal(size=x1.shape)
     y = np.eye(L)[lab[:K_LAB]]
@@ -107,19 +121,24 @@ def test_eval_cache_warm_start_and_perm_reuse_match_jax(monkeypatch):
     monkeypatch.setattr(tt, "bsr_plan",
                         lambda *a, **k: fresh.append(1) or orig(*a, **k))
     jcache, tcache = JCache(), EvalGraphCache()
-    for x in (x1, x2):
+    for i, x in enumerate((x1, x2)):
         want = jt.transductive_laplace(jnp.asarray(x), jnp.asarray(y),
                                        cache=jcache, **kw)
         got = tt.transductive_laplace(torch.tensor(x), torch.tensor(y),
                                       cache=tcache, **kw)
-        _assert_same_solve(got, want)
+        if i == 0:
+            _assert_same_solve(got, want)
+        else:                                 # JAX warm, the port cold
+            assert got[2] <= 1e-10 and want[1] < got[1]
+            np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                       atol=1e-8, rtol=0)
         assert (tcache.smax, tcache.ovf_cap) == (jcache.smax, jcache.ovf_cap)
         np.testing.assert_array_equal(tcache.perm.numpy(),
                                       np.asarray(jcache.perm))
     assert fresh == [1]                       # k-means skipped on eval 2
     cold = tt.transductive_laplace(torch.tensor(x2), torch.tensor(y), **kw)
-    assert got[1] < cold[1]
-    np.testing.assert_allclose(got[0].numpy(), cold[0].numpy(), atol=1e-8)
+    assert got[1] == cold[1]
+    np.testing.assert_allclose(got[0].numpy(), cold[0].numpy(), atol=0)
 
 
 @pytest.mark.parametrize("case", ["small_graph", "tile_budget",
