@@ -26,7 +26,8 @@ each:
           distances within twice that measured error), and on each row
           that differs exactly one neighbor swapped at the boundary, on at
           most 0.1% of rows; CUDA-event times of the kernel, the plain
-          route and one cdist + topk;
+          route and one cdist + topk, its achieved TFLOP/s and share of
+          the bound;
   op      laplace_learning forward + backward on the card in float32 against
           the port's float64 CPU result on the same input;
   train   20 full-width train steps in float32 (TF32 off everywhere), 20
@@ -119,7 +120,7 @@ PROFILE_GROUPS = (
 # the same for the transductive solve, which runs no convolution: its only
 # GEMM is the BSR tile product
 SOLVE_GROUPS = (
-    ("k2_knn", ("knn_topk", "sqnorm")),
+    ("k2_knn", ("knn_",)),
     ("bsr_tile_matmul", ("gemm", "xmma", "cutlass", "sm90_")),
     ("scatter_gather", ("index", "scatter", "gather")),
     ("sort_histogram", ("sort", "radix", "histogram")),
@@ -248,7 +249,8 @@ def phase_build():
              compiled=result is not None, nvcc_s=seconds,
              nvcc_flags=list(_build.NVCC_FLAGS),
              ptxas=[ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "smem" in ln or "spill" in ln])
+                    if any(w in ln for w in ("entry function", "registers",
+                                             "smem", "spill"))])
 
 
 def phase_k1():
@@ -348,7 +350,9 @@ def phase_k2():
              self_first=self_first, ms=ms, plain_ms=plain_ms,
              library_ms=library_ms,
              library="torch.cdist + torch.topk (two calls, full n x n)",
-             bound_ms=bound_ms, bound_by=bound_by)
+             bound_ms=bound_ms, bound_by=bound_by,
+             bound_share=bound_ms / ms,
+             tflops_both_triangles=2 * n * n * x.shape[1] / (ms * 1e9))
         check(self_first, f"K2 puts self first at n={n}")
         check(err <= K2_TOL, f"K2 max |dist2 diff| {err} <= {K2_TOL}")
         check(not bool((differ & ~tie).any()),

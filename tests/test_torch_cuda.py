@@ -109,6 +109,52 @@ def test_knn_kernel_matches_plain_on_card(cuda_device, n, d, k):
         k2.fused_knn(x.T.contiguous().T, k)
 
 
+def _integer_features(n, d, distinct, seed):
+    """n rows drawn from ``distinct`` integer rows in [-2, 2]^d: every
+    distance is an integer that float32 holds exactly, and the duplicated
+    rows make many exact ties."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(-2, 3, (distinct, d)).astype(np.float32)
+    return torch.from_numpy(base[rng.integers(0, distinct, n)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k,distinct", [
+    (100, 16, 10, 40),     # below one 128-row tile
+    (300, 7, 64, 60),      # d not a multiple of 4, k = 64
+    (1001, 130, 1, 200),   # k = 1, ragged n, d past the resident panel
+    (3000, 33, 50, 40),    # ~75 copies of each row: ties across tiles
+    (129, 4, 64, 129),     # one row past a tile
+    # on 132 SMs: no whole wave, blocks of 3 and of 4 rows a warp
+    (5000, 8, 20, 300),
+    (8000, 8, 10, 300),
+    # one wave of 128-row panels, then blocks of 6 and of 7 rows a warp
+    (28896, 8, 12, 300),
+    (30896, 8, 16, 300),
+])
+def test_knn_kernel_edges_on_card(cuda_device, n, d, k, distinct):
+    """K2 at the edges of its tiling and block plan, exactly: on integer
+    features with duplicated rows the kernel must return the stable sort
+    of the plain distance panel (self first at -1, ties to the lower
+    index), indices and distances alike."""
+    x = _integer_features(n, d, distinct, seed=n + d).to(cuda_device)
+    before = k2.fused_knn.launches
+    nbr, dist2 = k2.fused_knn(x, k)
+    torch.cuda.synchronize()
+    assert k2.fused_knn.launches == before + 1
+    x64 = x.double()
+    sq = (x64 * x64).sum(1)
+    for r0 in range(0, n, 2048):
+        rows = torch.arange(r0, min(r0 + 2048, n), device=cuda_device)
+        d2 = (sq[rows, None] + sq[None, :]
+              - 2.0 * (x64[rows] @ x64.T)).clamp_min(0.0)
+        d2[rows - r0, rows] = -1.0
+        want_d, want_n = torch.sort(d2, dim=1, stable=True)
+        assert torch.equal(nbr[rows], want_n[:, :k])
+        assert torch.equal(dist2[rows].double(),
+                           want_d[:, :k].clamp_min(0.0))
+
+
 @pytest.mark.cuda
 def test_knn_tiled_on_card_goes_through_k2(cuda_device):
     x = _knn_features(700, 64, seed=3).to(cuda_device)
