@@ -18,7 +18,11 @@ each:
           per source, all started together;
   k1      kernel K1 against its plain PyTorch version on the card at the
           op's shape (n=1500, d=128, k=25) and at n=300, max |diff| <= 1e-6,
-          with CUDA-event times and the reckoned bound;
+          W exactly symmetric; its device time over a run of 100
+          back-to-back launches (M and W, 18 MB at n=1500, stay in the
+          50 MB L2 between them), over 20 launches with L2 flushed before
+          each, and one call's time with the wrapper's host work in it
+          (call_ms), beside the reckoned bound and its share;
   k2      kernel K2 (fused KNN) against its plain version at the eval's
           shape (n=60,250, d=128, k=50) and at n=1500, k=25, on clustered
           features: max |dist2 diff| <= 1e-5; the same neighbor sets on
@@ -36,7 +40,8 @@ each:
           step on held-out images: the main path, across which K1's launch
           count is read;
   profile torch.profiler over 3 more warm float32 steps (TF32 off): device
-          time by kernel and the device's busy share;
+          time by kernel and the device's busy share, and K1's in-step
+          device time per launch (its group must read above zero);
   parity  one train step at a reduced batch (40 + 160) from identical
           weights on the card and on the CPU, TF32 off;
   solve   transductive_laplace at 60,250 nodes on clustered features with
@@ -51,8 +56,8 @@ each:
   k3      kernel K3 (affinity times a precomputed mask) against its plain
           version at n=1500, d=128 with the KNN mask (k=25, no self loops)
           of the port's knn, at n=300, and with a fixed eps: max |diff|
-          <= 1e-6, CUDA-event times and the reckoned bound (no path calls
-          K3);
+          <= 1e-6, device times as in k1 and the reckoned bound (no path
+          calls K3);
   op_edge laplace_learning in edge mode with the Cholesky and then the CG
           solver, forward + backward on the card at the op's shape, against
           the port's float64 CPU result and against dense mode on the card,
@@ -102,10 +107,14 @@ DRIVER_ARGV = [
 # H100 SXM peaks from NVIDIA's data sheet, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+# device_ms: the spin kernel's first length (about 10 ms at the H100's
+# clock), and the memset that evicts the 50 MB L2 before a flushed launch
+SPIN_CYCLES = 20_000_000
+FLUSH_BYTES = 256 * 2**20
 # kernel-name substrings that sort the profile's device time into groups;
 # the first group that matches takes the kernel
 PROFILE_GROUPS = (
-    ("k1_affinity", ("affinity_sym",)),
+    ("k1_affinity", ("affinity_tile_kernel",)),    # K1 and K3
     ("conv", ("xmma", "implicit_gemm", "conv", "dgrad", "wgrad", "fft")),
     ("conv_layout", ("nhwctonchw", "nchwtonhwc")),
     ("batchnorm", ("batchnorm", "batch_norm", "bn_")),
@@ -163,6 +172,44 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 100, flush: bool = False) -> float:
+    """Device ms of one ``fn()``: CUDA events around ``reps`` back-to-back
+    calls, over ``reps``, after warm-up.  The calls are enqueued behind a
+    spin kernel, so the device runs them back to back and the host's work
+    in each call (checks, allocation, the launch itself) stays outside the
+    window; that the device had not reached the first call when the last
+    was enqueued is checked, with a longer spin if not.  With ``flush``
+    each call has its own events, and a memset of FLUSH_BYTES before each
+    evicts the L2."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    scratch = (torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+               if flush else None)
+    cycles = SPIN_CYCLES
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        events = []
+        for _ in range(reps if flush else 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if flush:
+                scratch.zero_()
+            start.record()
+            for _ in range(1 if flush else reps):
+                fn()
+            end.record()
+            events.append((start, end))
+        ahead = not events[0][0].query()
+        torch.cuda.synchronize()
+        if ahead:
+            return sum(a.elapsed_time(b) for a, b in events) / reps
+        cycles *= 4
+    raise RuntimeError("device_ms: the host never got ahead of the device")
 
 
 def k1_bound_ms(n: int, d: int) -> tuple[float, str]:
@@ -253,34 +300,72 @@ def phase_build():
                                              "smem", "spill"))])
 
 
+def k1_inputs(n: int) -> tuple:
+    """K1's inputs at n on the card: unit features (d=128), and the eps and
+    raw KNN indicator (k=K) of the port's dense graph over them."""
+    from graphlearninglayer_tpu_torch.ops.dense_mode import build_dense_graph
+
+    x, _ = normalized_features(n, 128, SEED + n)
+    x = x.to("cuda")
+    g = build_dense_graph(x, K)
+    return x, g.eps, g.m_raw
+
+
+def k3_inputs(n: int, eps_mode: str = "auto") -> tuple:
+    """K3's inputs at n on the card: unit features (d=128), eps from their
+    K-th neighbor (or 1.5 for "fixed") and the KNN mask of the port's knn
+    without self loops (raw, so asymmetric)."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.ops.knn import knn
+
+    x, _ = normalized_features(n, 128, SEED + 3 * n)
+    x = x.to("cuda")
+    nbr, d2 = knn(x, K)
+    mask = torch.zeros((n, n), device=x.device).scatter_(1, nbr, 1.0)
+    mask.fill_diagonal_(0.0)
+    eps = (torch.sqrt(d2[:, -1]).clamp_min(1e-6) if eps_mode == "auto"
+           else torch.full((n,), 1.5, device=x.device))
+    return x, eps.contiguous(), mask
+
+
 def phase_k1():
     import torch
 
-    from graphlearninglayer_tpu_torch.ops.dense_mode import build_dense_graph
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
 
-    dev = torch.device("cuda")
     result = {}
     for n in (1500, 300):
-        x, _ = normalized_features(n, 128, SEED + n)
-        x = x.to(dev)
-        g = build_dense_graph(x, K)
-        args = (x, g.eps, g.m_raw)
+        args = k1_inputs(n)
+        m_raw = args[2]
         got = k1.fused_affinity_sym(*args)
         want = k1.fused_affinity_sym_plain(*args)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         check(err <= K1_TOL, f"K1 max |kernel - plain| {err} <= {K1_TOL} "
               f"at n={n}")
-        ms = cuda_ms(lambda: k1.fused_affinity_sym(*args))
-        plain_ms = cuda_ms(lambda: k1.fused_affinity_sym_plain(*args))
-        bound_ms, bound_by = k1_bound_ms(n, 128)
-        emit("k1", n=n, d=128, k=K, max_abs_err=err, tol=K1_TOL, ms=ms,
-             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-             edges=int(torch.maximum(g.m_raw, g.m_raw.T).sum().item()))
-        result[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
+        check(bool(torch.equal(got, got.T)), f"K1's W is symmetric at n={n}")
+        times = affinity_times(lambda: k1.fused_affinity_sym(*args),
+                               lambda: k1.fused_affinity_sym_plain(*args),
+                               n)
+        emit("k1", n=n, d=128, k=K, max_abs_err=err, tol=K1_TOL, **times,
+             edges=int(torch.maximum(m_raw, m_raw.T).sum().item()))
+        result[n] = dict(max_abs_err=err, **times)
     return result
+
+
+def affinity_times(kernel, plain, n: int) -> dict:
+    """K1's or K3's device times at n (d=128) beside the bound: ``ms`` over
+    100 back-to-back launches, with M and W warm in the L2 (18 MB at
+    n=1500); ``ms_l2_flushed`` over 20 launches, each after an L2 flush;
+    ``call_ms`` one call with the wrapper's host work inside the events;
+    ``plain_ms`` the plain version over 20 back-to-back calls."""
+    ms = device_ms(kernel)
+    bound_ms, bound_by = k1_bound_ms(n, 128)
+    return dict(ms=ms, ms_l2_flushed=device_ms(kernel, reps=20, flush=True),
+                call_ms=cuda_ms(kernel), plain_ms=device_ms(plain, reps=20),
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms)
 
 
 def phase_k2():
@@ -570,9 +655,12 @@ def profile_window(run, steps: int, groups=PROFILE_GROUPS) -> dict:
                       "share": t / total} for n, t in top])
 
 
-def phase_profile(state, step, data, rng, steps=3):
-    """Where a warm f32 train step (TF32 off) spends device time."""
+def phase_profile(state, step, data, rng, steps=3) -> float:
+    """Where a warm f32 train step (TF32 off) spends device time; returns
+    K1's in-step device ms per launch, which must be above zero."""
     import torch
+
+    from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
 
     images, labels = data
     torch.backends.cudnn.allow_tf32 = False
@@ -584,13 +672,24 @@ def phase_profile(state, step, data, rng, steps=3):
         b, t = idx[:N_BASE], idx[N_BASE:]
         step(state, images[b], labels[b], images[t], labels[t])
 
+    before = k1.fused_affinity_sym.launches
+    prof = profile_window(run, steps)
+    launches = k1.fused_affinity_sym.launches - before
+    k1_ms = prof["groups_ms_per_step"].get("k1_affinity", 0.0) * steps
+    in_step_ms = k1_ms / launches if launches else 0.0
     emit("profile", steps=steps, cudnn_tf32=False, matmul_tf32=False,
-         **profile_window(run, steps))
+         k1_launches=launches, k1_in_step_ms=in_step_ms, **prof)
+    check(launches == steps, f"K1 launched once a profiled step "
+          f"({launches} in {steps})")
+    check(in_step_ms > 0, "the profile's k1_affinity group reads K1's "
+          "device time (a kernel rename would leave it at 0)")
+    return in_step_ms
 
 
 def phase_train():
     """The training main path; returns K1's launches in it, the float32
-    state it trained and the TF32 run's median ms per step."""
+    state it trained, the TF32 run's median ms per step and K1's in-step
+    device ms from the profile."""
     import numpy as np
     import torch
 
@@ -624,8 +723,8 @@ def phase_train():
     check(tuple(pred.shape) == (N_BATCH,), "eval prediction shape")
     emit("eval", base=N_BASE, test=N_BATCH, acc=float(acc),
          chance=1.0 / NUM_CLASSES)
-    phase_profile(f32_state, f32_step, data, rng)
-    return launches, f32_state, tf32_ms
+    in_step_ms = phase_profile(f32_state, f32_step, data, rng)
+    return launches, f32_state, tf32_ms, in_step_ms
 
 
 def phase_solve():
@@ -767,20 +866,12 @@ def phase_k3():
     import torch
 
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k3
-    from graphlearninglayer_tpu_torch.ops.knn import knn
 
-    dev = torch.device("cuda")
     result, errs = {}, []
     k3.fused_affinity.launches = 0
     for n, eps_mode in ((1500, "auto"), (300, "auto"), (1500, "fixed")):
-        x, _ = normalized_features(n, 128, SEED + 3 * n)
-        x = x.to(dev)
-        nbr, d2 = knn(x, K)
-        knn_mask = torch.zeros((n, n), device=dev).scatter_(1, nbr, 1.0)
-        mask = knn_mask.fill_diagonal_(0.0).contiguous()
-        eps = (torch.sqrt(d2[:, -1]).clamp_min(1e-6) if eps_mode == "auto"
-               else torch.full((n,), 1.5, device=dev))
-        args = (x, eps.contiguous(), mask)
+        args = k3_inputs(n, eps_mode)
+        x, mask = args[0], args[2]
         got = k3.fused_affinity(*args)
         want = k3.fused_affinity_plain(*args)
         torch.cuda.synchronize()
@@ -794,18 +885,15 @@ def phase_k3():
         err_self = (k3.fused_affinity(x, args[1], with_self)
                     - k3.fused_affinity_plain(x, args[1], with_self)
                     ).abs().max().item()
-        ms = cuda_ms(lambda: k3.fused_affinity(*args))
-        plain_ms = cuda_ms(lambda: k3.fused_affinity_plain(*args))
+        times = affinity_times(lambda: k3.fused_affinity(*args),
+                               lambda: k3.fused_affinity_plain(*args), n)
         k3.fused_affinity.launches = launches   # only checked calls count
-        bound_ms, bound_by = k1_bound_ms(n, 128)
         emit("k3", n=n, d=128, k=K, eps=eps_mode, max_abs_err=err,
-             tol=K3_TOL, max_abs_err_with_self_loops=err_self, ms=ms,
-             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+             tol=K3_TOL, max_abs_err_with_self_loops=err_self, **times,
              library_ms=None,
              library="none: no single PyTorch call computes it")
         if n == 1500 and eps_mode == "auto":
-            result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by)
+            result = dict(times)
     result["max_abs_err"] = max(errs)
     result["launches"] = k3.fused_affinity.launches
     check(result["launches"] == 3, "K3 launched once per checked call")
@@ -1007,7 +1095,7 @@ def main() -> int:
     k1_stats = phase_k1()
     k2_stats = phase_k2()
     phase_op()
-    k1_launches, state, tf32_ms = phase_train()
+    k1_launches, state, tf32_ms, k1_in_step_ms = phase_train()
     phase_parity()
     phase_solve()
     phase_solve_parity()
@@ -1031,6 +1119,10 @@ def main() -> int:
         "bound_ms": k1_main["bound_ms"],
         "bound_by": k1_main["bound_by"],
         "library_ms": None,
+        "bound_share": k1_main["bound_share"],
+        "ms_l2_flushed": k1_main["ms_l2_flushed"],
+        "call_ms": k1_main["call_ms"],
+        "in_step_ms": k1_in_step_ms,
     }, {
         "name": "fused_knn",
         "route": "cuda",
@@ -1044,6 +1136,7 @@ def main() -> int:
         "bound_ms": k2_main["bound_ms"],
         "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"],
+        "bound_share": k2_main["bound_ms"] / k2_main["ms"],
     }, {
         "name": "fused_affinity",
         "route": "cuda",
@@ -1057,6 +1150,9 @@ def main() -> int:
         "bound_ms": k3_stats["bound_ms"],
         "bound_by": k3_stats["bound_by"],
         "library_ms": None,
+        "bound_share": k3_stats["bound_share"],
+        "ms_l2_flushed": k3_stats["ms_l2_flushed"],
+        "call_ms": k3_stats["call_ms"],
     }]
     emit("done", wall_s=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))

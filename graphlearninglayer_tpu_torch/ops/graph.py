@@ -89,7 +89,8 @@ class BatchGraph(NamedTuple):
 def build_graph(x: torch.Tensor, k: int, epsilon="auto", *,
                 tiled: bool = False, block: int = 1024) -> BatchGraph:
     """The symmetrized KNN graph of the rows of ``x``.  ``tiled=True`` takes
-    the memory-bounded :func:`knn_tiled` (kernel K2 on the card).
+    the memory-bounded :func:`knn_tiled` (kernel K2 on the card for
+    k <= 64).
 
     ``epsilon``: 'auto' for the self-tuning bandwidth, else a positive
     float."""

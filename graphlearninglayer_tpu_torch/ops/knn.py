@@ -3,8 +3,9 @@
 Twin of ``graphlearninglayer_tpu/ops/knn.py``.  At the per-batch graph sizes
 of the training op (n ~ 1.5k) exact KNN is one matrix product for the
 distances plus one ``torch.topk`` (:func:`knn`).  At the transductive eval's
-size (n ~ 60k, k = 50) :func:`knn_tiled` never forms the n x n matrix: on the
-card it is kernel K2, on the CPU K2's plain version.  Exact KNN is
+size (n ~ 60k, k = 50) :func:`knn_tiled` never forms the n x n matrix: for
+k <= 64 it is kernel K2 on the card and K2's plain version on the CPU, for
+larger k the blocked route of the JAX package's ``knn_tiled``.  Exact KNN is
 deterministic, which the parity tests rely on.
 
 Conventions (matching the reference):
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernels.knn_topk import fused_knn
+from .kernels.knn_topk import MAX_K, fused_knn, fused_knn_plain
 
 __all__ = ["pairwise_dist2", "knn", "knn_tiled"]
 
@@ -58,13 +59,29 @@ def knn(x: torch.Tensor, k: int,
 def knn_tiled(x: torch.Tensor, k: int,
               block: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
     """Memory-bounded exact KNN for large n (the ~60k-node transductive
-    path); same ``(nbr, dist2)`` contract as :func:`knn`.
+    path); same ``(nbr, dist2)`` contract as :func:`knn`, for any
+    1 <= k <= n.
 
-    It is kernel K2, :func:`kernels.knn_topk.fused_knn`, with its contract
-    (``k`` at most 64; on the card a contiguous float32 ``x``).  On a CUDA
-    tensor the kernel never writes a distance panel and ``block`` is unused.
-    On a CPU tensor K2's plain version takes ``block`` query rows at a time,
-    one distance panel against all of ``x`` and one ``torch.topk``, so the
-    peak panel memory is ``block`` x n.
+    The route is chosen from ``k`` alone, before anything is launched:
+
+    * k <= 64 (``MAX_K``, the width of K2's lists): kernel K2,
+      :func:`kernels.knn_topk.fused_knn`, with its contract (on the card a
+      contiguous float32 ``x``).  On a CUDA tensor the kernel never writes a
+      distance panel and ``block`` is unused; on a CPU tensor K2's plain
+      version runs.
+    * k > 64: the blocked route of the JAX package's ``knn_tiled``, on
+      either device and in the input's dtype: per ``block`` query rows, one
+      distance panel against all of ``x`` and one ``torch.topk``, self pinned
+      first via d2 = -1 (:func:`kernels.knn_topk.fused_knn_plain`).  No
+      kernel is launched, so ``fused_knn.launches`` does not move.
+
+    Either way the peak panel memory of a blocked route is ``block`` x n.
     """
-    return fused_knn(x, k, block)
+    if k <= MAX_K:
+        return fused_knn(x, k, block)
+    if x.dim() != 2:
+        raise ValueError(f"x must be (n, d), got shape {tuple(x.shape)}")
+    if k > x.shape[0]:
+        raise ValueError(f"k ({k}) exceeds the number of rows "
+                         f"({x.shape[0]})")
+    return fused_knn_plain(x, k, block)

@@ -2,8 +2,8 @@
 
 Twin of ``graphlearninglayer_tpu/ops/transductive.py``: build a k=50 KNN
 graph over base + train + test features (~60k nodes for CIFAR-10) with
-``knn_tiled`` (kernel K2 on the card), then solve the label-propagation
-system with a Jacobi-preconditioned ``stable_conjgrad``.
+``knn_tiled`` (kernel K2 on the card for k <= 64), then solve the
+label-propagation system with a Jacobi-preconditioned ``stable_conjgrad``.
 
 Four matvec modes, the same as the JAX package's:
 

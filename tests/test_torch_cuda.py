@@ -28,15 +28,35 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# K1 and K3 at the op's shape, a ragged last tile (1499: n % 4 != 0, its
+# scalar copies), one tile (300 is five, 63 is one), a single row, and
+# d = 130 and 7 (d % 4 != 0: 4-byte copies of x, a ragged last slice).
+AFFINITY_N = [1500, 1499, 300, 63, 1]
+AFFINITY_D = [128, 130, 7]
+
+
+def _affinity_features(n, d, seed):
+    """Unit rows for d >= 128.  For d = 7 the rows lie on a grid of 1/8 in
+    [-2, 2]^7, where every product and partial sum is exact in float32, so
+    the kernel and its plain version form the same d2 in any summation
+    order.  (On unit rows in 7 dimensions neighbors lie close, 4 d2 / eps^2
+    amplifies the rounding of |x_i|^2 + |x_j|^2, and the float32 formula
+    itself moves W by about the 1e-6 bar, whatever the summation order.)"""
+    gen = torch.Generator().manual_seed(seed)
+    if d < 128:
+        return torch.randint(-16, 17, (n, d), generator=gen).float() / 8.0
+    return torch.nn.functional.normalize(torch.randn(n, d, generator=gen),
+                                         dim=1)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1500, 300])
-def test_kernel_matches_plain_on_card(cuda_device, n):
-    """K1 against its plain version at the op's width, within the JAX
-    kernel test's bar of 1e-6."""
-    gen = torch.Generator().manual_seed(n)
-    x = torch.nn.functional.normalize(torch.randn(n, 128, generator=gen),
-                                      dim=1)
-    g = tdm.build_dense_graph(x.double(), 25)
+@pytest.mark.parametrize("d", AFFINITY_D)
+@pytest.mark.parametrize("n", AFFINITY_N)
+def test_kernel_matches_plain_on_card(cuda_device, n, d):
+    """K1 against its plain version within the JAX kernel test's bar of
+    1e-6, with W exactly symmetric and exactly 0 on the diagonal."""
+    x = _affinity_features(n, d, seed=n + d)
+    g = tdm.build_dense_graph(x.double(), min(25, n))
     args = [t.float().to(cuda_device) for t in (x, g.eps, g.m_raw)]
     before = k1.fused_affinity_sym.launches
     got = k1.fused_affinity_sym(*args)
@@ -44,10 +64,37 @@ def test_kernel_matches_plain_on_card(cuda_device, n):
     assert k1.fused_affinity_sym.launches == before + 1
     want = k1.fused_affinity_sym_plain(*args)
     assert (got - want).abs().max().item() <= 1e-6
+    assert torch.equal(got, got.T)
+    assert not bool(got.diagonal().any())
     with pytest.raises(TypeError, match="float32"):
         k1.fused_affinity_sym(*(a.double() for a in args))
-    with pytest.raises(ValueError, match="contiguous"):
-        k1.fused_affinity_sym(args[0].T.contiguous().T, *args[1:])
+    if n > 1:   # a (1, d) view is contiguous whatever its strides
+        with pytest.raises(ValueError, match="contiguous"):
+            k1.fused_affinity_sym(args[0].T.contiguous().T, *args[1:])
+
+
+@pytest.mark.cuda
+def test_k1_drops_duplicated_rows_exactly(cuda_device):
+    """Rows copied onto other rows (d2 = 0) are each other's nearest
+    neighbors, and K1 gives exactly 0 there: the norms and the Gram tile
+    are one fmaf chain in feature order.  Elsewhere it matches the plain
+    version within 1e-6 (whose norms and products round apart, so its d2
+    there is not always 0)."""
+    n, d = 300, 128
+    x = _affinity_features(n, d, seed=11)
+    src, dup = torch.arange(10, 30), torch.arange(150, 170)
+    x[dup] = x[src]
+    g = tdm.build_dense_graph(x.double(), 25)
+    assert bool(g.m_raw[dup, src].all())
+    args = [t.float().to(cuda_device) for t in (x, g.eps, g.m_raw)]
+    got = k1.fused_affinity_sym(*args)
+    want = k1.fused_affinity_sym_plain(*args)
+    torch.cuda.synchronize()
+    assert not bool(got[dup, src].any()) and not bool(got[src, dup].any())
+    assert not bool(got.diagonal().any())
+    keep = torch.ones((n, n), dtype=torch.bool, device=cuda_device)
+    keep[dup, src] = keep[src, dup] = False
+    assert (got - want)[keep].abs().max().item() <= 1e-6
 
 
 @pytest.mark.cuda
@@ -157,32 +204,42 @@ def test_knn_kernel_edges_on_card(cuda_device, n, d, k, distinct):
 
 @pytest.mark.cuda
 def test_knn_tiled_on_card_goes_through_k2(cuda_device):
+    """k <= 64 launches K2; k = 65 takes the blocked route on the card, the
+    plain version's arithmetic, with no launch; K2 itself still refuses
+    k > 64."""
     x = _knn_features(700, 64, seed=3).to(cuda_device)
     before = k2.fused_knn.launches
     nbr, dist2 = knn_tiled(x, 50)
     assert k2.fused_knn.launches == before + 1
     assert nbr.shape == (700, 50) and dist2.dtype == torch.float32
+    nbr65, dist65 = knn_tiled(x, 65)
+    assert k2.fused_knn.launches == before + 1
+    want_n, want_d = k2.fused_knn_plain(x, 65)
+    assert torch.equal(nbr65, want_n) and torch.equal(dist65, want_d)
+    assert nbr65.shape == (700, 65) and nbr65.is_cuda
     with pytest.raises(ValueError, match="k <= 64"):
-        knn_tiled(x, 65)
+        k2.fused_knn(x, 65)
     # the kernel's dtype contract holds through knn_tiled: no silent cast
     with pytest.raises(TypeError, match="float32"):
         knn_tiled(x.double(), 50)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,epsilon", [(1500, "auto"), (300, "auto"),
-                                       (300, 1.5)])
-def test_k3_matches_plain_on_card(cuda_device, n, epsilon):
-    """K3 with the KNN mask (k=25, no self loops, as the JAX kernel test's
-    graph mask has none) against its plain version, within that test's bar
-    of 1e-6; ragged n needs no padding.  On the diagonal d2 is float32
-    cancellation and W ~ 1, so two summation orders differ there by more
-    than 1e-6."""
-    gen = torch.Generator().manual_seed(n)
-    x = torch.nn.functional.normalize(torch.randn(n, 128, generator=gen),
-                                      dim=1)
-    g = tdm.build_dense_graph(x.double(), 25, epsilon)
+@pytest.mark.parametrize("n,d,epsilon",
+                         [(n, d, "auto") for n in AFFINITY_N
+                          for d in AFFINITY_D] + [(300, 128, 1.5)])
+def test_k3_matches_plain_on_card(cuda_device, n, d, epsilon):
+    """K3 with the raw KNN mask (k=25, asymmetric, no self loops, as the
+    JAX kernel test's graph mask has none) against its plain version,
+    within that test's bar of 1e-6: each triangle takes its own mask entry
+    (exactly 0 where its entry is 0, whatever the transposed entry).  On
+    the diagonal d2 is float32 cancellation and W ~ 1, so two summation
+    orders differ there by more than 1e-6."""
+    x = _affinity_features(n, d, seed=n + d)
+    g = tdm.build_dense_graph(x.double(), min(25, n), epsilon)
     mask = g.m_raw.clone().fill_diagonal_(0.0)
+    if n > 26:
+        assert bool((mask != mask.T).any())
     args = [t.float().to(cuda_device) for t in (x, g.eps, mask)]
     before = k1.fused_affinity.launches
     got = k1.fused_affinity(*args)
@@ -190,10 +247,12 @@ def test_k3_matches_plain_on_card(cuda_device, n, epsilon):
     assert k1.fused_affinity.launches == before + 1
     want = k1.fused_affinity_plain(*args)
     assert (got - want).abs().max().item() <= 1e-6
+    assert not bool(got[args[2] == 0].any())
     with pytest.raises(TypeError, match="float32"):
         k1.fused_affinity(*(a.double() for a in args))
-    with pytest.raises(ValueError, match="contiguous"):
-        k1.fused_affinity(args[0], args[1], args[2].T)
+    if n > 1:   # a (1, 1) mask is contiguous transposed too
+        with pytest.raises(ValueError, match="contiguous"):
+            k1.fused_affinity(args[0], args[1], args[2].T)
 
 
 def _gapped_features(n, d, k, seed):

@@ -22,7 +22,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 
 def _port_files():
     files = sorted((ROOT / "graphlearninglayer_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "k2_turns.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "k1_turns.py",
+                    ROOT / "k2_turns.py"]
 
 
 def _imported_roots(path):

@@ -72,6 +72,19 @@ def test_transductive_laplace_matches_jax(mode):
     assert acc > 0.9
 
 
+def test_transductive_laplace_k_above_k2_lists_matches_jax():
+    """knn_num=65, past K2's 64-wide lists: the port's knn_tiled takes the
+    blocked route (JAX's knn_tiled takes any k), with the bar above."""
+    n = 300
+    x, lab = _clustered(n=n, seed=5)
+    y = np.eye(L)[lab[:K_LAB]]
+    kw = dict(knn_num=65, mode="sorted", return_info=True)
+    want = jt.transductive_laplace(jnp.asarray(x), jnp.asarray(y), **kw)
+    got = tt.transductive_laplace(torch.tensor(x), torch.tensor(y), **kw)
+    _assert_same_solve(got, want)
+    assert (got[0].numpy().argmax(1) == lab[K_LAB:]).mean() > 0.9
+
+
 def test_bsr_plan_and_product():
     """The plan permutes the graph without changing it, and the tile
     product equals sym_spmm, also with edges in the COO overflow."""
