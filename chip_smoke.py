@@ -70,6 +70,25 @@ each:
           one cache, across which K1's and K2's launch counts are read; then
           three 1-epoch runs at 5,000 + 1,000 images: a resume from the main
           run's last checkpoint, the MLP branch, and --gl_solver cg;
+  adversarial  the adversarial path, the reference's cifar10 config at full
+          width through the drivers' entry points: PGD-robust training of
+          the GL and MLP heads (PreActResNet-18, feat_dim 128, batch 200,
+          10 base images a class, 5 PGD iterations at eps 0.05, alpha
+          0.01; tau 0, k 25; SGD, cosine) for 1 epoch over a 4,000 + 400
+          image synthetic CIFAR-geometry stand-in, and a natural GL run;
+          the driver's own step (``make_train_step``) timed step by step
+          after a warm-up, robust and natural GL and robust MLP, and three
+          robust GL steps under the profiler (K1 launched exactly 6 times
+          a step); the IFGSM sweep [0, 0.05, 0.1] and CW at c=10
+          (cw_iters cut from 100 to 20) on the trained checkpoint, 500
+          base + 200 batch = 700 nodes an op call; then the mnist config:
+          SmallCNNGL natural training (1 epoch, 12,000 + 1,000 images,
+          1,100 nodes, dense) and one FGSM point at 10,000 base + 1,000
+          batch = 11,000 nodes (edge mode, Cholesky); K1's device ms at
+          n = 300, 700 and 1,100 beside its bound.  Every Cholesky (tau 0)
+          of the path must succeed, the 11,000-node point's included, every
+          loss and accuracy be finite, and the PGD outputs stay in the eps
+          ball and the data range;
 
 then the ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and the final ``{"ok": true, ...}`` line.  Any failed check
@@ -104,6 +123,13 @@ DRIVER_ARGV = [
     "--num_train", str(N_BASE), "--knn_k", str(K), "--epsilon", "auto",
     "--temp", str(TAU), "--tau", str(EVAL_TAU), "--cosine",
     "--augment_type_sup", "strong", "--plot_freq_ss", "1"]
+# the adversarial path: the reference's cifar10 config with only the data
+# cut (train / test images), CW's iterations cut from 100, and the mnist
+# config at enough images for its FGSM base set (1,000 a class)
+ADV_TRAIN, ADV_TEST, ADV_CW_ITERS = 4000, 400, 20
+ADV_SWEEP, ADV_C = [0.0, 0.05, 0.1], [10.0]
+ADV_MNIST_TRAIN, ADV_MNIST_TEST = 12_000, 1000
+ADV_TIMED_STEPS, ADV_PROFILE_STEPS = 10, 3
 # H100 SXM peaks from NVIDIA's data sheet, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -300,12 +326,12 @@ def phase_build():
                                              "smem", "spill"))])
 
 
-def k1_inputs(n: int) -> tuple:
+def k1_inputs(n: int, d: int = 128) -> tuple:
     """K1's inputs at n on the card: unit features (d=128), and the eps and
     raw KNN indicator (k=K) of the port's dense graph over them."""
     from graphlearninglayer_tpu_torch.ops.dense_mode import build_dense_graph
 
-    x, _ = normalized_features(n, 128, SEED + n)
+    x, _ = normalized_features(n, d, SEED + n)
     x = x.to("cuda")
     g = build_dense_graph(x, K)
     return x, g.eps, g.m_raw
@@ -1082,6 +1108,286 @@ def phase_fullysup(train_tf32_ms: float) -> dict:
     return dict(k1_launches=k1_launches, k2_launches=k2_launches)
 
 
+def _adv_steps(dataset: str, target: str, rob_or_nat: str, synth: dict,
+               profiled: int = 0) -> dict:
+    """The adversarial driver's own training step (``make_train_step``)
+    on a fresh state and one synthetic batch stream: a warm-up step, then
+    ``ADV_TIMED_STEPS`` steps on the host clock, each ending in a sync,
+    then ``profiled`` steps under torch.profiler.  Returns the timed
+    steps' ms, K1's launches in each step, every op call's Cholesky info,
+    the profile and, for robust GL, how far one more PGD call's output
+    leaves the eps ball and the data range."""
+    import numpy as np
+    import torch
+
+    from graphlearninglayer_tpu_torch.attack.pgd import make_gl_pgd_perturb_p
+    from graphlearninglayer_tpu_torch.data import (Transform,
+                                                   select_base_indices,
+                                                   synthetic_dataset)
+    from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.train import adversarial_driver as ad
+    from graphlearninglayer_tpu_torch.train import create_train_state
+
+    cfg = ad.DATASET_CONFIGS[dataset]
+    dev = torch.device("cuda")
+    channels = 3 if dataset == "cifar10" else 1
+    side = 32 if dataset == "cifar10" else 28
+    spec = synthetic_dataset(NUM_CLASSES, (side, side, channels), seed=SEED,
+                             **synth)
+    x_all = ad._nchw(Transform(dataset).normalize(spec.train_images), dev)
+    y_all = torch.as_tensor(spec.train_labels).long().to(dev)
+    base_idx = select_base_indices(
+        spec.train_labels, NUM_CLASSES * cfg.base_sample_rate, NUM_CLASSES,
+        rng=np.random.default_rng(SEED))
+    base = torch.as_tensor(base_idx).to(dev)
+    rest = torch.as_tensor(np.setdiff1d(np.arange(len(spec.train_labels)),
+                                        base_idx)).to(dev)
+    net = cfg.network_gl if target == "gl" else cfg.network_mlp
+    state = create_train_state(
+        ad.build_network(net, NUM_CLASSES, channels,
+                         torch.Generator().manual_seed(SEED)),
+        ad._make_schedule(cfg, 20), device=dev, **ad._make_tx(cfg, target))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lo = torch.as_tensor(cfg.min_val, dtype=torch.float32, device=dev)
+    hi = torch.as_tensor(cfg.max_val, dtype=torch.float32, device=dev)
+    bx, by = x_all[base], y_all[base]
+    step = ad.make_train_step(target, rob_or_nat, cfg, NUM_CLASSES, bx, by,
+                              gen, lo, hi, dev)
+    counts, stats, step_ms = [], [], []
+    batch_i = iter(range(100))
+
+    def batch():
+        sel = rest[(torch.arange(cfg.batch_size, device=dev)
+                    + cfg.batch_size * next(batch_i)) % len(rest)]
+        return x_all[sel], y_all[sel]
+
+    def one_step():
+        x, y = batch()
+        before = k1.fused_affinity_sym.launches
+        step(state, x, y, stats)
+        counts.append(k1.fused_affinity_sym.launches - before)
+
+    one_step()                                     # warm-up
+    for _ in range(ADV_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    out = dict(step_ms=step_ms, k1_launches_per_step=counts)
+    if profiled:
+        out["prof"] = profile_window(one_step, profiled)
+    out["chol_info"] = [int(s["chol_info"]) for s in stats
+                        if "chol_info" in s]
+    if target == "gl" and rob_or_nat == "robust":
+        perturb = make_gl_pgd_perturb_p(
+            ad._eval_features, NUM_CLASSES, tau=cfg.gl_tau, k=K,
+            eps=cfg.pgd_epsilon, alpha=cfg.pgd_alpha,
+            num_iters=cfg.pgd_iters, device=dev)
+        x, y = batch()
+        adv = perturb(state.model, bx, by, x, y, gen, lo, hi)
+        out["eps_ball_excess"] = ((adv - x).abs().max()
+                                  - cfg.pgd_epsilon).item()
+        out["range_excess"] = max((lo - adv).clamp_min(0).amax().item(),
+                                  (adv - hi).clamp_min(0).amax().item())
+    return out
+
+
+def phase_adversarial() -> dict:
+    """The adversarial path through its entry points; returns K1's
+    launches in its runs (each read with the count set to 0 just before)
+    and K1's device times at the path's shapes."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from graphlearninglayer_tpu_torch.attack import driver as attack_driver
+    from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.train import adversarial_driver as ad
+
+    torch.backends.cudnn.allow_tf32 = True    # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cifar = dict(n_train=ADV_TRAIN, n_test=ADV_TEST)
+    mnist = dict(n_train=ADV_MNIST_TRAIN, n_test=ADV_MNIST_TEST)
+    cfg = ad.DATASET_CONFIGS["cifar10"]
+    home, work = os.getcwd(), tempfile.mkdtemp(prefix="gll_adv_")
+    out: dict = {}
+    try:
+        os.chdir(work)
+        models = os.path.join(work, "models")
+        # robust training of both heads: K1 6 times a GL step, once an
+        # eval batch
+        k1.fused_affinity_sym.launches = 0
+        t0 = time.perf_counter()
+        rob = ad.run("both", "robust", "cifar10", epochs=1, save_dir=models,
+                     synth=cifar)
+        robust_launches = k1.fused_affinity_sym.launches
+        steps = rob["gl_steps_per_epoch"]
+        eval_batches = ADV_TEST // cfg.batch_size
+        emit("adversarial_train", config="cifar10", heads="both",
+             mode="robust", train=ADV_TRAIN, test=ADV_TEST, epochs=1,
+             steps_per_epoch=steps, wall_s=time.perf_counter() - t0,
+             gl_epoch_s=rob["gl_epoch_s"], mlp_epoch_s=rob["mlp_epoch_s"],
+             gl_loss=rob["gl_loss"], mlp_loss=rob["mlp_loss"],
+             gl_acc=rob["gl_acc"], mlp_acc=rob["mlp_acc"],
+             gl_chol_info=rob["gl_chol_info"], gl_eval_s=rob["gl_eval_s"],
+             k1_launches=robust_launches,
+             k1_launches_per_robust_step=(robust_launches - eval_batches)
+             / steps)
+        check(robust_launches == 6 * steps + eval_batches,
+              f"K1 launched 6 times a robust GL step and once an eval batch "
+              f"({robust_launches} for {steps} steps, {eval_batches} "
+              f"batches)")
+        check(rob["gl_chol_info"] == 0, "every Cholesky of the robust run "
+              "(tau 0) succeeded")
+        for key in ("gl_loss", "mlp_loss"):
+            check(all(math.isfinite(v) for v in rob[key]), f"finite {key}")
+        for key in ("gl_acc", "mlp_acc"):
+            check(0.0 <= rob[key] <= 1.0, f"{key} a finite accuracy")
+
+        k1.fused_affinity_sym.launches = 0
+        nat = ad.run("gl", "natural", "cifar10", epochs=1, save_dir=models,
+                     synth=cifar)
+        natural_launches = k1.fused_affinity_sym.launches
+        emit("adversarial_natural", config="cifar10", heads="gl",
+             steps_per_epoch=nat["gl_steps_per_epoch"],
+             gl_epoch_s=nat["gl_epoch_s"], gl_loss=nat["gl_loss"],
+             gl_acc=nat["gl_acc"], gl_chol_info=nat["gl_chol_info"],
+             k1_launches=natural_launches)
+        check(nat["gl_chol_info"] == 0 and math.isfinite(nat["gl_loss"][0]),
+              "natural run: Cholesky succeeded, finite loss")
+
+        # the driver's step, timed step by step, and profiled
+        robust = _adv_steps("cifar10", "gl", "robust", cifar,
+                            profiled=ADV_PROFILE_STEPS)
+        natural = _adv_steps("cifar10", "gl", "natural", cifar)
+        mlp = _adv_steps("cifar10", "mlp", "robust", cifar)
+        prof = robust["prof"]
+        groups = prof["groups_ms_per_step"]
+        encoder = sum(groups.get(g, 0.0) for g in ("conv", "conv_layout",
+                                                   "batchnorm"))
+        op = sum(groups.get(g, 0.0) for g in ("k1_affinity", "cholesky_solve",
+                                              "topk_sort"))
+        emit("adversarial_steps", config="cifar10",
+             gl_ms_per_robust_step_median=statistics.median(
+                 robust["step_ms"]),
+             gl_ms_per_natural_step_median=statistics.median(
+                 natural["step_ms"]),
+             mlp_ms_per_robust_step_median=statistics.median(mlp["step_ms"]),
+             gl_robust_step_ms=robust["step_ms"],
+             gl_natural_step_ms=natural["step_ms"],
+             mlp_robust_step_ms=mlp["step_ms"])
+        emit("adversarial_profile", steps=ADV_PROFILE_STEPS,
+             k1_launches_per_step=robust["k1_launches_per_step"],
+             chol_info=robust["chol_info"],
+             eps_ball_excess=robust["eps_ball_excess"],
+             range_excess=robust["range_excess"],
+             encoder_share=encoder / prof["kernel_ms_per_step"],
+             op_share_k1_cholesky_topk=op / prof["kernel_ms_per_step"],
+             k1_share=groups.get("k1_affinity", 0.0)
+             / prof["kernel_ms_per_step"], **prof)
+        n_steps = 1 + ADV_TIMED_STEPS + ADV_PROFILE_STEPS
+        check(robust["k1_launches_per_step"] == [6] * n_steps,
+              f"K1 launched exactly 6 times a robust step "
+              f"({robust['k1_launches_per_step']})")
+        check(natural["k1_launches_per_step"] == [1] * (1 + ADV_TIMED_STEPS)
+              and mlp["k1_launches_per_step"] == [0] * (1 + ADV_TIMED_STEPS),
+              "K1 once a natural GL step, never in an MLP step")
+        check(all(i == 0 for i in robust["chol_info"] + natural["chol_info"]),
+              "every timed and profiled Cholesky succeeded")
+        check(robust["eps_ball_excess"] <= 1e-6
+              and robust["range_excess"] == 0.0,
+              "PGD stays in the eps ball and the data range "
+              f"({robust['eps_ball_excess']}, {robust['range_excess']})")
+
+        sweeps = {}
+        for attack, points, per_batch, rate in (
+                ("ifgsm", ADV_SWEEP,
+                 sum(int(5 * (p / 0.05)) + 1 for p in ADV_SWEEP),
+                 attack_driver.FGSM_BASE_RATE["cifar10"]),
+                ("cw", ADV_C, len(ADV_C) * (ADV_CW_ITERS + 2),
+                 attack_driver.CW_BASE_RATE["cifar10"])):
+            k1.fused_affinity_sym.launches = 0
+            res = attack_driver.run(attack, "both", "robust", "cifar10",
+                                    ckpt_dir=models, sweep=points,
+                                    cw_iters=ADV_CW_ITERS, synth=cifar)
+            launches = k1.fused_affinity_sym.launches
+            sweeps[attack] = launches
+            emit("adversarial_attack", attack=attack, config="cifar10",
+                 base=NUM_CLASSES * rate, batch=cfg.batch_size,
+                 nodes=NUM_CLASSES * rate + cfg.batch_size,
+                 cw_iters=ADV_CW_ITERS if attack == "cw" else None,
+                 cw_iters_reference=100 if attack == "cw" else None,
+                 gl=res["gl"], mlp=res["mlp"], k1_launches=launches)
+            batches = ADV_TEST // cfg.batch_size
+            check(launches == per_batch * batches,
+                  f"{attack}: K1 once an op call ({launches})")
+            for p in res["gl"] + res["mlp"]:
+                check(0.0 <= p["accuracy"] <= 1.0, f"{attack} accuracy")
+            check(all(p["chol_info"] == 0 for p in res["gl"]),
+                  f"{attack}: every Cholesky succeeded")
+
+        k1.fused_affinity_sym.launches = 0
+        mn = ad.run("gl", "natural", "mnist", epochs=1, save_dir=models,
+                    synth=mnist)
+        mnist_launches = k1.fused_affinity_sym.launches
+        k1.fused_affinity_sym.launches = 0
+        fg = attack_driver.run("fgsm", "gl", "natural", "mnist",
+                               ckpt_dir=models, sweep=[0.1], synth=mnist)
+        fgsm_launches = k1.fused_affinity_sym.launches
+        mnist_steps = _adv_steps("mnist", "gl", "natural", mnist)
+        mcfg = ad.DATASET_CONFIGS["mnist"]
+        point = fg["gl"][0]
+        emit("adversarial_mnist", train=ADV_MNIST_TRAIN, test=ADV_MNIST_TEST,
+             train_nodes=10 * mcfg.base_sample_rate + mcfg.batch_size,
+             steps_per_epoch=mn["gl_steps_per_epoch"],
+             gl_epoch_s=mn["gl_epoch_s"],
+             gl_ms_per_natural_step_median=statistics.median(
+                 mnist_steps["step_ms"]),
+             gl_natural_step_ms=mnist_steps["step_ms"],
+             gl_loss=mn["gl_loss"], gl_acc=mn["gl_acc"],
+             gl_chol_info=mn["gl_chol_info"], train_k1_launches=mnist_launches,
+             fgsm_nodes=10 * attack_driver.FGSM_BASE_RATE["mnist"]
+             + mcfg.batch_size, fgsm=fg["gl"],
+             fgsm_k1_launches=fgsm_launches)
+        check(mnist_launches == mn["gl_steps_per_epoch"] + 1,
+              f"mnist: K1 once a step and an eval batch ({mnist_launches})")
+        check(mn["gl_chol_info"] == 0 and math.isfinite(mn["gl_loss"][0])
+              and all(i == 0 for i in mnist_steps["chol_info"]),
+              "mnist: Cholesky succeeded, finite loss")
+        check(fgsm_launches == 0 and point["op_calls"] == 2,
+              "the 11,000-node FGSM: 2 op calls, in edge mode")
+        check(point["chol_info"] == 0,
+              f"the 11,000-node FGSM (tau 0): every Cholesky succeeded "
+              f"(info {point['chol_info']})")
+        check(0.0 <= point["accuracy"] <= 1.0, "the 11,000-node FGSM: an "
+              "accuracy")
+        out["launches"] = dict(robust=robust_launches,
+                               natural=natural_launches,
+                               ifgsm=sweeps["ifgsm"], cw=sweeps["cw"],
+                               mnist=mnist_launches, mnist_fgsm=fgsm_launches)
+    finally:
+        os.chdir(home)
+        shutil.rmtree(work, ignore_errors=True)
+
+    shapes = []
+    for n, d in ((300, 128), (700, 128), (1100, 200)):
+        args = k1_inputs(n, d)
+        err = (k1.fused_affinity_sym(*args)
+               - k1.fused_affinity_sym_plain(*args)).abs().max().item()
+        ms = device_ms(lambda: k1.fused_affinity_sym(*args))
+        bound_ms, bound_by = k1_bound_ms(n, d)
+        shapes.append(dict(n=n, d=d, ms=ms, bound_ms=bound_ms,
+                           bound_by=bound_by, bound_share=bound_ms / ms,
+                           max_abs_err=err))
+        check(err <= K1_TOL, f"K1 at n={n}, d={d}: {err} <= {K1_TOL}")
+    emit("adversarial_k1", shapes=shapes)
+    out["k1_shapes"] = shapes
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1105,6 +1411,7 @@ def main() -> int:
     k3_stats = phase_k3()
     phase_op_edge()
     phase_fullysup(tf32_ms)
+    adv = phase_adversarial()
     k1_main, k2_main = k1_stats[1500], k2_stats[EVAL_N]
     kernels = [{
         "name": "fused_affinity_sym",
@@ -1123,6 +1430,10 @@ def main() -> int:
         "ms_l2_flushed": k1_main["ms_l2_flushed"],
         "call_ms": k1_main["call_ms"],
         "in_step_ms": k1_in_step_ms,
+        # the adversarial path: launches of each of its runs, and K1's
+        # device times at its shapes
+        "launches_adversarial": adv["launches"],
+        "adversarial_shapes": adv["k1_shapes"],
     }, {
         "name": "fused_knn",
         "route": "cuda",

@@ -8,24 +8,29 @@ the unit-norm features, the MLP path consumes ``pred``.
 """
 from __future__ import annotations
 
-import math
 from typing import Callable
 
 import torch
 import torch.nn as nn
 
 from . import resnet as _resnet
-from .cnn import l2_normalize
+from . import wrn as _wrn
+from ._init import init_weights
+from .cnn import CifarCNN, l2_normalize
 
 __all__ = ["BuildNet", "model_dict", "init_weights"]
 
-# name -> (encoder constructor, feature dim).  Only the ResNet entries are
-# ported so far.
+# name -> (encoder constructor (``in_channel`` keyword), feature dim)
 model_dict: dict[str, tuple[Callable[..., nn.Module], int]] = {
     "resnet18": (_resnet.resnet18, 512),
+    # space-to-depth stem, not reference-equivalent (models/resnet.py)
+    "resnet18_s2d": (_resnet.resnet18_s2d, 512),
     "resnet34": (_resnet.resnet34, 512),
     "resnet50": (_resnet.resnet50, 2048),
     "resnet101": (_resnet.resnet101, 2048),
+    "wrn-28-2": (_wrn.wrn_28_2, 128),
+    "wrn-28-8": (_wrn.wrn_28_8, 512),
+    "cifarcnn": (CifarCNN, 128),
 }
 
 
@@ -74,29 +79,13 @@ class BuildNet(nn.Module):
             init_weights(self, generator)
 
     def forward(self, x: torch.Tensor):
-        with torch.autocast(device_type=x.device.type, dtype=self.dtype,
-                            enabled=self.dtype != torch.float32):
+        if self.dtype == torch.float32:   # no autocast: runs on any device
             feat = self.encoder(x)
+        else:
+            with torch.autocast(device_type=x.device.type, dtype=self.dtype):
+                feat = self.encoder(x)
         feat = self.head(feat)
         pred = self.linear(feat)
         if self.softmax:
             pred = torch.softmax(pred, dim=1)
         return pred, l2_normalize(feat)
-
-
-@torch.no_grad()
-def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Re-draw every conv and linear layer with PyTorch's default schemes
-    (kaiming-uniform weights with a=sqrt(5), uniform biases) from
-    ``generator``, and reset BatchNorm to weight 1, bias 0 and fresh
-    running statistics."""
-    for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
-                                     generator=generator)
-            if m.bias is not None:
-                fan_in = m.weight[0].numel()
-                bound = 1.0 / math.sqrt(fan_in)
-                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
-        elif isinstance(m, nn.BatchNorm2d):
-            m.reset_parameters()

@@ -22,8 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["BasicBlock", "Bottleneck", "ResNet", "resnet18", "resnet34",
-           "resnet50", "resnet101"]
+__all__ = ["BasicBlock", "Bottleneck", "ResNet", "resnet18", "resnet18_s2d",
+           "resnet34", "resnet50", "resnet101"]
 
 
 class BasicBlock(nn.Module):
@@ -75,24 +75,39 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Returns pooled float32 features of dim 512 * expansion; input NCHW."""
+    """Returns pooled float32 features of dim 512 * expansion; input NCHW.
+
+    ``s2d_stem=True`` (not reference-equivalent): the JAX package's
+    space-to-depth stem.  2x2 pixel patches fold into channels (C x H x W
+    -> 4C x H/2 x W/2, channel (dy * 2 + dx) * C + c, as the flax reshape
+    orders them) before a 128-channel stem, stage 1 runs 128 channels, and
+    only stages 3 and 4 stride.
+    """
 
     def __init__(self, block: type, num_blocks: Sequence[int],
-                 in_channel: int = 3):
+                 in_channel: int = 3, s2d_stem: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channel, 64, 3, 1, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
-        in_planes = 64
+        self.s2d_stem = s2d_stem
+        stem = 128 if s2d_stem else 64
+        self.conv1 = nn.Conv2d(4 * in_channel if s2d_stem else in_channel,
+                               stem, 3, 1, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(stem)
+        in_planes = stem
+        first_stride = 3 if s2d_stem else 2
         for stage, (planes, blocks) in enumerate(
-                zip((64, 128, 256, 512), num_blocks), start=1):
+                zip((stem, 128, 256, 512), num_blocks), start=1):
             layers = []
             for i in range(blocks):
-                stride = 2 if (stage > 1 and i == 0) else 1
+                stride = 2 if (stage >= first_stride and i == 0) else 1
                 layers.append(block(in_planes, planes, stride))
                 in_planes = planes * block.expansion
             setattr(self, f"layer{stage}", nn.Sequential(*layers))
 
     def forward(self, x):
+        if self.s2d_stem:
+            b, c, h, w = x.shape
+            x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(
+                0, 3, 5, 1, 2, 4).reshape(b, 4 * c, h // 2, w // 2)
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.layer4(self.layer3(self.layer2(self.layer1(out))))
         # pool in (at least) float32 whatever the compute dtype: the graph
@@ -103,6 +118,11 @@ class ResNet(nn.Module):
 
 def resnet18(**kw) -> ResNet:
     return ResNet(BasicBlock, (2, 2, 2, 2), **kw)
+
+
+def resnet18_s2d(**kw) -> ResNet:
+    """The space-to-depth-stem ResNet-18 (see ``ResNet``)."""
+    return ResNet(BasicBlock, (2, 2, 2, 2), s2d_stem=True, **kw)
 
 
 def resnet34(**kw) -> ResNet:

@@ -12,7 +12,10 @@ that encodes the union-symmetrized graph:
     (reciprocal pair), so that accumulating both endpoint contributions of
     every directed edge gives the symmetric matrix exactly;
   * self edges and zero-distance edges get ``coef = 0`` (the reference drops
-    explicit zeros).
+    explicit zeros).  Off the eval's tiled route an edge's distance is taken
+    from the difference of its endpoints (:func:`edge_dist2`), so that only
+    equal rows count as coincident; the JAX package keeps the search's
+    |x|^2 + |y|^2 - 2 x.y, which at float32 also zeroes close pairs.
 
 Affinity values: W_ij = exp(-4 d_ij^2 / (eps_i eps_j)) and
 V_ij = -8 W_ij / (eps_i eps_j), with eps_i the k-th-neighbor distance in
@@ -38,6 +41,7 @@ __all__ = [
     "BatchGraph",
     "build_graph",
     "graph_from_knn",
+    "edge_dist2",
     "edge_weights",
     "sym_rowsum",
     "sym_spmm",
@@ -54,6 +58,8 @@ __all__ = [
 
 # rows per chunk of the reciprocal-edge test (a (chunk, k, k) gather)
 _RECIP_CHUNK = 8192
+# rows per chunk of edge_dist2 (a (chunk, k, d) gather)
+_DIST_CHUNK = 2048
 
 
 class BatchGraph(NamedTuple):
@@ -97,8 +103,25 @@ def build_graph(x: torch.Tensor, k: int, epsilon="auto", *,
     if tiled:
         nbr, dist2 = knn_tiled(x, k, block)
     else:
-        nbr, dist2 = knn(x, k)
+        nbr, _ = knn(x, k)
+        dist2 = edge_dist2(x, nbr)
     return graph_from_knn(nbr, dist2, epsilon, dtype=x.dtype)
+
+
+def edge_dist2(x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """|x_i - x_j|^2 along each KNN edge (n, k), from the differences.
+
+    The search ranks by |x_i|^2 + |x_j|^2 - 2 x_i.x_j, which cancels where
+    points lie close together: at float32, unit rows whose d2 is below
+    about 1e-7 (a barely trained encoder's features) come out at 0, and
+    graph_from_knn would drop their edges as coincident points, leaving a
+    node without edges and Luu singular at tau = 0.  The differences lose
+    nothing, so d2 is 0 here only for equal rows, and the forward's
+    distances are those that the edge-mode backward differentiates."""
+    return torch.cat([
+        (x[s:s + _DIST_CHUNK, None, :] - x[nbr[s:s + _DIST_CHUNK]])
+        .square().sum(dim=-1)
+        for s in range(0, x.shape[0], _DIST_CHUNK)])
 
 
 def graph_from_knn(nbr: torch.Tensor, dist2: torch.Tensor, epsilon="auto", *,

@@ -9,10 +9,23 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 __all__ = ["AverageMeter", "AverageMeterSet", "Throughput", "topk_accuracy",
            "FileLogger", "parameters_string", "parameter_count",
-           "UnifLabelSampler"]
+           "UnifLabelSampler", "drain_correct"]
+
+
+def drain_correct(preds, labels) -> int:
+    """Count correct predictions from a list of device prediction vectors.
+
+    The deferred eval pattern: enqueue every batch first, then copy all
+    predictions to the host in one transfer here.  ``labels`` must cover
+    the concatenated length."""
+    if not preds:
+        return 0
+    got = torch.cat([torch.as_tensor(p) for p in preds]).cpu().numpy()
+    return int(np.sum(got == np.asarray(labels)))
 
 
 class AverageMeter:

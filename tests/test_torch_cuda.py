@@ -307,3 +307,160 @@ def test_edge_mode_on_card_matches_cpu_float64(cuda_device, solver):
     dense, dense_gx, _ = run(*args, mode="dense")
     assert (pred - dense).abs().max().item() <= 1e-4
     assert ((gx - dense_gx).abs().max() / scale).item() <= 1e-3
+
+
+def _robust_gl_inputs(device):
+    """The cifar10 config's robust GL step at 300 nodes: a seeded
+    PreActResNet-18's train state, 100 base + 200 batch random images and
+    their labels, the data range and the config."""
+    from graphlearninglayer_tpu_torch.train import adversarial_driver as ad
+
+    cfg = ad.DATASET_CONFIGS["cifar10"]
+    gen = torch.Generator().manual_seed(0)
+    base = torch.rand(100, 3, 32, 32, generator=gen).to(device) * 3 - 1.5
+    x = torch.rand(200, 3, 32, 32, generator=gen).to(device) * 3 - 1.5
+    base_y = torch.arange(10).repeat(10).to(device)
+    y = torch.randint(0, 10, (200,), generator=gen).to(device)
+    lo, hi = (torch.tensor(v, device=device) for v in (cfg.min_val,
+                                                        cfg.max_val))
+    model = ad.build_network("preactresnet18", 10, 3,
+                             torch.Generator().manual_seed(0))
+    state = create_train_state(model, ad._make_schedule(cfg, 20),
+                               device=device, **ad._make_tx(cfg, "gl"))
+    return state, base, base_y, x, y, lo, hi, cfg
+
+
+def _robust_gl_step(device, adv=None):
+    """One robust GL step of the cifar10 config on the card (5 PGD
+    iterations and one SGD step; tau = 0, k = 25); with ``adv``, the SGD
+    step alone on those adversarial images.  Returns the loss, the
+    adversarial images, K1's launches in the step and every op call's
+    Cholesky info."""
+    from graphlearninglayer_tpu_torch.attack.pgd import make_gl_pgd_perturb_p
+    from graphlearninglayer_tpu_torch.train import adversarial_driver as ad
+
+    state, base, base_y, x, y, lo, hi, cfg = _robust_gl_inputs(device)
+    stats = []
+    before = k1.fused_affinity_sym.launches
+    if adv is None:
+        perturb = make_gl_pgd_perturb_p(
+            ad._eval_features, 10, tau=0.0, k=25, eps=cfg.pgd_epsilon,
+            alpha=cfg.pgd_alpha, num_iters=cfg.pgd_iters, device=device)
+        adv = perturb(state.model, base, base_y, x, y,
+                      torch.Generator(device=device).manual_seed(0), lo, hi,
+                      stats)
+    loss, op_stats = ad._gl_train_step(state, 10, dict(tau=0.0, k=25),
+                                       base, base_y, adv, y)
+    launches = k1.fused_affinity_sym.launches - before
+    infos = [int(s["chol_info"]) for s in stats + [op_stats]]
+    return loss.item(), adv, launches, infos
+
+
+@pytest.mark.cuda
+def test_robust_gl_step_on_card_launches_k1_six_times(cuda_device,
+                                                     monkeypatch):
+    """Five PGD op calls and the training step's: K1 six times, every
+    Cholesky at tau = 0 succeeding.  Then the training step on the same
+    adversarial images with K1's plain version in its place (no launch):
+    the loss within 1e-4 relative.  The PGD calls are held against the
+    plain version by ``test_robust_gl_pgd_gradients_k1_against_plain``.
+    TF32 is off for the convolutions, as for the matrix products."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    loss, adv, launches, infos = _robust_gl_step(cuda_device)
+    assert launches == 6
+    assert infos == [0] * 6 and np.isfinite(loss)
+    monkeypatch.setattr(tdm, "fused_affinity_sym",
+                        k1.fused_affinity_sym_plain)
+    plain_loss, _, plain_launches, plain_infos = _robust_gl_step(
+        cuda_device, adv)
+    assert plain_launches == 0 and plain_infos == [0]
+    assert abs(loss - plain_loss) <= 1e-4 * abs(plain_loss)
+
+
+# PGD against the plain affinity: the input gradient's largest error
+# relative to its largest entry, and the share of pixels whose first PGD
+# step may differ
+PGD_GRAD_TOL = 1e-3
+PGD_MAX_FLIPS = 1e-3
+
+
+@pytest.mark.cuda
+def test_robust_gl_pgd_gradients_k1_against_plain(cuda_device, monkeypatch):
+    """The robust step's five PGD op calls, K1 against its plain version,
+    with deterministic algorithms and TF32 off.
+
+    Along K1's PGD run, each iteration's input gradient (before the sign)
+    is taken at the same images with K1 and with the plain affinity: they
+    agree within ``PGD_GRAD_TOL`` of the largest entry, so their signs can
+    differ only where the gradient lies inside that error band.  K1's walk
+    equals ``pgd_iterations`` bit for bit.  A PGD run with each affinity
+    from the same start: their first steps differ only on pixels whose
+    gradient signs differ (at most ``PGD_MAX_FLIPS`` of the pixels).  The
+    later iterations spread those few flipped pixels over the images; a run
+    with K1 throughout, started from the plain run's first step, spreads
+    them as far, so the spread is PGD's own sensitivity, not the
+    affinity's."""
+    from graphlearninglayer_tpu_torch.attack.fgsm import gl_loss, input_grad
+    from graphlearninglayer_tpu_torch.attack.pgd import (pgd_iterations,
+                                                         uniform_start)
+    from graphlearninglayer_tpu_torch.train import adversarial_driver as ad
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        state, base, base_y, x, y, lo, hi, cfg = _robust_gl_inputs(
+            cuda_device)
+        stats = []
+        loss = gl_loss(lambda imgs: ad._eval_features(state.model, imgs),
+                       10, dict(tau=0.0, k=25), base, base_y, y, stats)
+        start = uniform_start(x, cfg.pgd_epsilon, torch.Generator(
+            device=cuda_device).manual_seed(0), lo, hi)
+
+        def plain_grad(data):
+            with monkeypatch.context() as m:
+                m.setattr(tdm, "fused_affinity_sym",
+                          k1.fused_affinity_sym_plain)
+                return input_grad(loss, data)
+
+        def step(data, g):
+            data = torch.clamp(data + cfg.pgd_alpha * torch.sign(g),
+                               x - cfg.pgd_epsilon, x + cfg.pgd_epsilon)
+            return torch.clamp(data, lo, hi)
+
+        def walk(data, grad, iters):
+            for _ in range(iters):
+                data = step(data, grad(data))
+            return data
+
+        walk_k1, rel_errs, flips = [start], [], []
+        for _ in range(cfg.pgd_iters):
+            g = input_grad(loss, walk_k1[-1])
+            gp = plain_grad(walk_k1[-1])
+            rel_errs.append(((g - gp).abs().max() / gp.abs().max()).item())
+            flips.append(torch.sign(g) != torch.sign(gp))
+            walk_k1.append(step(walk_k1[-1], g))
+        adv = pgd_iterations(loss, start, x, cfg.pgd_alpha, cfg.pgd_epsilon,
+                             cfg.pgd_iters, lo, hi)
+        first_plain = step(start, plain_grad(start))
+        adv_plain = walk(first_plain, plain_grad, cfg.pgd_iters - 1)
+        adv_seeded = walk(first_plain, lambda d: input_grad(loss, d),
+                          cfg.pgd_iters - 1)
+        first_differ = walk_k1[1] != first_plain
+        apart = int((adv != adv_plain).sum())
+        seeded_apart = int((adv_seeded != adv).sum())
+        print(f"PGD K1 against plain: gradient error / largest {rel_errs}, "
+              f"sign flips {[int(f.sum()) for f in flips]}; first steps "
+              f"differ on {int(first_differ.sum())} pixels; final images "
+              f"differ on {apart} of {adv.numel()} pixels; K1 from plain's "
+              f"first step ends {seeded_apart} pixels from K1's run")
+        assert all(e <= PGD_GRAD_TOL for e in rel_errs)
+        assert all(int(s["chol_info"]) == 0 for s in stats)
+        assert torch.equal(adv, walk_k1[-1])
+        assert torch.all(flips[0][first_differ])
+        assert first_differ.sum() <= PGD_MAX_FLIPS * adv.numel()
+        assert seeded_apart >= apart // 2
+    finally:
+        torch.use_deterministic_algorithms(False)

@@ -86,6 +86,40 @@ def test_zero_distance_edges_are_masked(rng):
     _assert_close(tg.ell_spmm(ell, vec), tg.sym_spmm(g, w, vec))
 
 
+def _close_clusters(n_clusters, size, dim, spread, seed=0):
+    """Float32 unit rows in tight clusters: ``size`` points a cluster,
+    ``spread`` apart per coordinate, so that their squared distances lie
+    far below float32's resolution of |x|^2 = 1."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clusters, 1, dim))
+    x = (centers + spread * rng.normal(size=(n_clusters, size, dim)))
+    x = x.reshape(-1, dim)
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def test_close_float32_pairs_keep_their_edges():
+    """Clusters of float32 unit rows with d2 ~1e-11: the search's
+    |x|^2 + |y|^2 - 2 x.y form, which the JAX graph keeps, zeroes some of
+    those edges and drops them as coincident points; the port's edge
+    distances come from the differences, so every non-self edge keeps a
+    positive d2 and weight, within 1e-4 relative of the distances of the
+    same float32 rows in float64."""
+    x = _close_clusters(10, 4, 16, 1e-6)
+    gj = jax.jit(lambda v: jg.build_graph(v, 4))(jnp.asarray(x))
+    off_self = np.asarray(gj.nbr) != np.arange(40)[:, None]
+    assert (np.asarray(gj.dist2)[off_self] == 0.0).sum() > 0
+
+    gt = tg.build_graph(torch.from_numpy(x), 4)
+    off_self = gt.nbr != torch.arange(40)[:, None]
+    assert torch.all(gt.dist2[off_self] > 0.0)
+    assert torch.all(gt.coef[off_self] > 0.0)
+    assert torch.all(tg.edge_weights(gt)[0][off_self] > 0.0)
+    x64 = torch.from_numpy(x).double()
+    want = (x64[:, None, :] - x64[gt.nbr]).square().sum(-1)
+    np.testing.assert_allclose(gt.dist2.double().numpy(), want.numpy(),
+                               rtol=1e-4, atol=0)
+
+
 @functools.partial(jax.jit, static_argnums=(2, 3))
 def _jax_ell(x, vec, cap, ovf_cap):
     """The JAX side of the ELL test in one compiled program."""

@@ -23,7 +23,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 def _port_files():
     files = sorted((ROOT / "graphlearninglayer_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "k1_turns.py",
-                    ROOT / "k2_turns.py"]
+                    ROOT / "k2_turns.py", ROOT / "mnist_fgsm_probe.py"]
 
 
 def _imported_roots(path):
@@ -42,7 +42,12 @@ def test_port_imports_no_jax():
     # the driver slice's modules are scanned too
     for mod in ("config/cli", "data/augment", "data/native", "data/pipeline",
                 "utils/meters", "utils/checkpoint", "utils/profiling",
-                "evalx/visualize", "train/fullysup"):
+                "evalx/visualize", "train/fullysup",
+                # the encoder zoo and the adversarial path
+                "models/cnn", "models/preact_resnet", "models/wrn",
+                "models/resnet_mnist", "utils/jax_params", "attack/fgsm",
+                "attack/pgd", "attack/cw", "attack/driver",
+                "train/adversarial_driver"):
         assert f"graphlearninglayer_tpu_torch/{mod}.py" in names, mod
     assert len(files) >= 30
     for path in files:
@@ -77,3 +82,35 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path, monkeypatch):
     state = create_train_state(BuildNet("resnet18"),
                                make_lr_schedule(0.01, 1, 1), device="cpu")
     assert next(state.model.parameters()).device.type == "cpu"
+
+
+def test_adversarial_entry_points_raise_without_cuda(no_cuda, tmp_path,
+                                                    monkeypatch):
+    """The adversarial path's drivers and attack builders run on the card
+    unless given the CPU, and raise without CUDA before any work."""
+    from graphlearninglayer_tpu_torch import attack
+    from graphlearninglayer_tpu_torch.attack import driver, pgd
+    from graphlearninglayer_tpu_torch.train import adversarial_driver
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        adversarial_driver.run("gl", "robust", "synthetic")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        driver.run("fgsm", "gl", "robust", "synthetic")
+    with pytest.raises(RuntimeError, match="--dev cpu"):
+        adversarial_driver.main(["gl", "robust", "synthetic"])
+    with pytest.raises(RuntimeError, match="--dev cpu"):
+        driver.main(["fgsm", "gl", "robust", "synthetic"])
+    gl = [lambda **kw: attack.make_gl_fast_gradient_attack(None, 3, **kw),
+          lambda **kw: attack.make_gl_cw_attack(None, 3, **kw),
+          lambda **kw: attack.make_gl_pgd_perturb(None, 3, **kw),
+          lambda **kw: pgd.make_gl_pgd_perturb_p(None, 3, **kw)]
+    mlp = [lambda **kw: attack.make_mlp_fast_gradient_attack(None, **kw),
+           lambda **kw: attack.make_mlp_cw_attack(None, **kw),
+           lambda **kw: attack.make_mlp_pgd_perturb(None, **kw),
+           lambda **kw: pgd.make_mlp_pgd_perturb_p(None, **kw)]
+    for make in gl + mlp:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        assert callable(make(device="cpu"))
+    assert not (tmp_path / "models").exists()

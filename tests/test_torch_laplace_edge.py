@@ -114,3 +114,24 @@ def test_auto_mode_dispatch_and_rules(monkeypatch):
         laplace_learning(xt, yt, k=5, solver="lu")
     with pytest.raises(ValueError, match="unknown mode"):
         laplace_learning(xt, yt, k=5, mode="sparse")
+
+
+def test_edge_mode_factors_close_float32_clusters():
+    """Ten tight float32 clusters of five unit rows, one labeled row each,
+    tau = 0: with the search's d2 an unlabeled row could lose every edge
+    to cancellation and leave Luu singular; with the edge distances from
+    the differences every Cholesky succeeds and each cluster takes its
+    labeled row's class, as in float64."""
+    from tests.test_torch_graph import _close_clusters
+
+    x = _close_clusters(10, 5, 16, 1e-6).reshape(10, 5, 16)
+    lab, unl = x[:, 0], x[:, 1:].reshape(-1, 16)
+    y = np.eye(10)
+    want = np.repeat(np.eye(10), 4, axis=0)
+    for dt in (torch.float32, torch.float64):
+        stats = {}
+        pred = laplace_learning(torch.from_numpy(np.concatenate([lab, unl]))
+                                .to(dt), torch.from_numpy(y).to(dt), tau=0.0,
+                                k=5, mode="edge", stats=stats)
+        assert int(stats["chol_info"]) == 0
+        np.testing.assert_allclose(pred.double().numpy(), want, atol=1e-4)
