@@ -89,6 +89,35 @@ each:
           of the path must succeed, the 11,000-node point's included, every
           loss and accuracy be finite, and the PGD outputs stay in the eps
           ball and the data range;
+  device_aug  the augmentation on the card (data/device_aug.py): every
+          RandAugment op at four magnitudes and both signs, the prefix warp
+          and the cutout at fixed parameters on a 32x32x3 and a 28x28x1
+          image, the card's uint8 output against the port's on the CPU and
+          the native backend's (a differing pixel is reported with its
+          source coordinate's distance to the integer boundary, and fails
+          unless that is <= 1e-9); the cifar10 weak and strong and mnist
+          strong transforms over 1,500 images, the card against the CPU at
+          the same draws on 64 of them; ms to augment 1,500 32x32x3 images
+          in strong mode on the card beside the native backend's on the
+          host's cores;
+  device_data  the fullysup run with --device_data (the splits resident
+          on the card, the augmentation there): K1 once a GL step, K2 once
+          in each of the three resident 60,250-node evals, each converged
+          above chance; ms a step beside the fullysup phase's and the bare
+          step's, the traced epoch's busy share and host-to-device bytes a
+          step (at most 64 KB: index and label vectors); the resident
+          encode of the run's last state equal to the streaming encode bit
+          for bit over 5,000 images;
+  visualize  the visualize CLI on that run's last checkpoint: it restores
+          and encodes 2,000 train and 1,024 test images; the plots and the
+          probe run or print "skipped";
+  compare  compare_to_mlp at the CLI defaults (ResNet-18, 250 + 1250,
+          k=25, tau 0.07) for 2 epochs of 12 steps on the synthetic
+          CIFAR-geometry set: K1 once a step, finite losses; one step's GL
+          loss equal to the model's before that step's update;
+  supcon  SupCon and SimCLR, each on the host path and with --device_data
+          (ResNet-18, 1250 images x 2 views, 2 epochs of 4 steps): finite
+          losses, each checkpoint restored, ms a step;
 
 then the ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and the final ``{"ok": true, ...}`` line.  Any failed check
@@ -98,6 +127,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -130,6 +160,17 @@ ADV_TRAIN, ADV_TEST, ADV_CW_ITERS = 4000, 400, 20
 ADV_SWEEP, ADV_C = [0.0, 0.05, 0.1], [10.0]
 ADV_MNIST_TRAIN, ADV_MNIST_TEST = 12_000, 1000
 ADV_TIMED_STEPS, ADV_PROFILE_STEPS = 10, 3
+# the device-resident path: one step's base + batch images augmented on the
+# card, the fixed-parameter parity grid, and the host-to-device bytes a
+# step may copy once the splits are on the card (index and label vectors:
+# 2 x 1250 int64 = 20 KB; the host pipeline copies 4.6 MB of images)
+AUG_BATCH, AUG_PARITY_ROWS = N_BASE + N_BATCH, 64
+DD_MAX_H2D_BYTES_PER_STEP = 64 * 1024
+DD_CHECK_ROWS = 5000        # random images for resident vs streaming encode
+# the compare and SupCon drivers at the CLI defaults, cut in data: 12 and 4
+# steps an epoch, 2 epochs (the second one's ms a step is reported)
+COMPARE_TRAIN, SUPCON_TRAIN, SHORT_EPOCHS = 15_000, 5000, 2
+VIZ_POINTS = 2000
 # H100 SXM peaks from NVIDIA's data sheet, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -1105,7 +1146,8 @@ def phase_fullysup(train_tf32_ms: float) -> dict:
         os.environ.pop("GLL_PROFILE_EPOCH", None)
         os.chdir(home)
         shutil.rmtree(work, ignore_errors=True)
-    return dict(k1_launches=k1_launches, k2_launches=k2_launches)
+    return dict(k1_launches=k1_launches, k2_launches=k2_launches,
+                ms_per_step=ms_per_step)
 
 
 def _adv_steps(dataset: str, target: str, rob_or_nat: str, synth: dict,
@@ -1388,6 +1430,513 @@ def phase_adversarial() -> dict:
     return out
 
 
+def _source_coords(h: int, w: int, coeffs, qx, qy):
+    """float64 source coordinates (sx, sy) of an affine map at integer
+    positions (qx, qy): the values whose floor picks the source pixel."""
+    a, b, c0, d, e, f0 = (float(c) for c in coeffs)
+    xc, yc = qx + 0.5, qy + 0.5
+    return a * xc + b * yc + c0, d * xc + e * yc + f0
+
+
+def _boundary_distance(sx, sy, pixels) -> float:
+    """The largest, over the differing output pixels, of the distance of
+    their source coordinates to the nearest integer (where a rounding
+    difference can move the floor)."""
+    rows, cols = pixels[:, 0], pixels[:, 1]
+    dist = [min(abs(x - round(x)), abs(y - round(y)))
+            for x, y in zip(sx[rows, cols], sy[rows, cols])]
+    return max(dist)
+
+
+def _geo_coords(h: int, w: int, op: int, sv: float):
+    """Source coordinates of a geometric RandAugment op at signed
+    magnitude ``sv`` over the whole image, or None for a pixel op."""
+    import numpy as np
+    import torch
+
+    from graphlearninglayer_tpu_torch.data import device_aug as da
+
+    table = {9: (1, sv, 0, 0, 1, 0), 10: (1, 0, 0, sv, 1, 0),
+             12: (1, 0, sv * w, 0, 1, 0), 13: (1, 0, 0, 0, 1, sv * h)}
+    if op == 7:
+        coeffs = da._rotate_coeffs(h, w, torch.tensor([sv],
+                                                      dtype=torch.float64))
+    elif op in table:
+        coeffs = table[op]
+    else:
+        return None
+    qy, qx = np.mgrid[0:h, 0:w].astype(np.float64)
+    return _source_coords(h, w, coeffs, qx, qy)
+
+
+def _compare_images(got, ref, coords, what: str, against: str,
+                    differing: list) -> None:
+    """Record the output pixels where ``got`` and ``ref`` (H, W, C uint8)
+    differ, with their source coordinates' distance to the integer
+    boundary; fail unless every such pixel lies within 1e-9 of it (a
+    rounding tie of the float64 coordinate)."""
+    import numpy as np
+
+    pixels = np.argwhere((got != ref).any(-1))
+    if not len(pixels):
+        return
+    dist = (_boundary_distance(*coords, pixels) if coords is not None
+            else None)
+    differing.append(dict(case=what, against=against, pixels=len(pixels),
+                          boundary_distance=dist))
+    check(dist is not None and dist <= 1e-9,
+          f"device aug {what}: {len(pixels)} pixels differ from {against} "
+          f"away from an integer boundary ({dist})")
+
+
+def phase_device_aug() -> dict:
+    """The card's augmentation against the port on the CPU and the native
+    backend, per op and for the prefix warp and the cutout at fixed
+    parameters, the batch transforms on the card, and the card's time for
+    one step's images beside the native backend's."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from graphlearninglayer_tpu_torch.data import device_aug as da
+    from graphlearninglayer_tpu_torch.data import native
+
+    check(native.native_available(), "the native augmentation backend")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    rgb = rng.integers(0, 256, (32, 32, 3), np.uint8)
+    rgb[..., 1] = 40 + rgb[..., 1] % 150        # a limited-range channel
+    gray = rng.integers(0, 256, (28, 28, 1), np.uint8)
+    differing: list = []
+    cases = 0
+    for img in (rgb, gray):
+        h, w, c = img.shape
+        on_card = torch.from_numpy(img).to(dev)
+        for name, op in da.OP_IDS.items():
+            lo, hi = float(da._OP_LO[op]), float(da._OP_HI[op])
+            for frac in (0.0, 0.33, 0.77, 1.0):
+                for sign in (False, True):
+                    v = lo + frac * (hi - lo)
+                    got = da.device_apply_op(on_card, op, v, sign)
+                    got = got.cpu().numpy()
+                    what = f"{name} v={v:.4f} sign={sign} c={c}"
+                    coords = _geo_coords(h, w, op, -v if sign else v)
+                    _compare_images(got, da.device_apply_op(img, op, v,
+                                                            sign).numpy(),
+                                    coords, what, "cpu", differing)
+                    _compare_images(got, native.apply_op_native(img, op, v,
+                                                                sign),
+                                    coords, what, "native", differing)
+                    cases += 1
+        # the prefix warp (rotate -> flip -> pad+crop as one resample) and
+        # the cutout at fixed parameters
+        ang, pad, (i, j) = 13.7, 4, (1, 6)
+        reflect = c == 3
+        cfg = dict(rotation=20, flip=True, pad=pad, pad_reflect=reflect)
+        params = [torch.tensor([ang], dtype=torch.float64),
+                  torch.tensor([True]), torch.tensor([[i, j]])]
+        out = {}
+        for where in ("cuda", "cpu"):
+            src, valid = da._prefix_src(h, w, 1, *(p.to(where)
+                                                   for p in params),
+                                        device=where, **cfg)
+            x = da._to_planar(torch.from_numpy(img)[None].to(where))
+            out[where] = da._from_planar(da._warp(x, src, valid), h,
+                                         w)[0].cpu().numpy()
+        nat = native.pad_crop_native(native.mirror_native(
+            native.rotate_native(img, ang)), pad, reflect, i, j)
+        # source coordinates: crop, reflect or zero box, flip, rotation
+        qy, qx = np.mgrid[0:h, 0:w] + np.array([i - pad, j - pad])[:, None,
+                                                                    None]
+        if reflect:
+            qy, qx = np.abs(qy), np.abs(qx)
+            qy = np.where(qy >= h, 2 * h - 2 - qy, qy)
+            qx = np.where(qx >= w, 2 * w - 2 - qx, qx)
+        qx = w - 1 - np.clip(qx, 0, w - 1)
+        coords = _source_coords(h, w, da._rotate_coeffs(h, w, params[0]),
+                                qx.astype(np.float64),
+                                np.clip(qy, 0, h - 1).astype(np.float64))
+        what = f"prefix c={c}"
+        _compare_images(out["cuda"], out["cpu"], coords, what, "cpu",
+                        differing)
+        _compare_images(out["cuda"], nat, coords, what, "native", differing)
+        for frac, r1, r2 in ((0.4, 0.3, 0.6), (0.49, 0.99, 0.01)):
+            got = da.device_cutout(torch.from_numpy(img).to(dev), frac, r1,
+                                   r2).cpu().numpy()
+            what = f"cutout {frac} {r1} {r2} c={c}"
+            _compare_images(got, da.device_cutout(img, frac, r1,
+                                                  r2).numpy(),
+                            None, what, "cpu", differing)
+            _compare_images(got, native.cutout_native(img, frac, r1, r2),
+                            None, what, "native", differing)
+        cases += 3
+
+    transforms = []
+    for dataset, mode in (("cifar10", "weak"), ("cifar10", "strong"),
+                          ("mnist", "strong")):
+        shape = (32, 32, 3) if dataset == "cifar10" else (28, 28, 1)
+        batch = torch.from_numpy(rng.integers(0, 256, (AUG_BATCH, *shape),
+                                              np.uint8)).to(dev)
+        tf = da.DeviceTransform(dataset, mode)
+        gen = torch.Generator(device=dev)
+        params = tf.draw(AUG_BATCH, gen.manual_seed(1), dev)
+        out = tf.apply(batch, params)
+        check(torch.equal(out, tf(batch, gen.manual_seed(1))),
+              f"{dataset} {mode}: a seeded generator repeats its draws")
+        # the card against the CPU at the same draws, on the first rows
+        sub = {k: v[:AUG_PARITY_ROWS].cpu() for k, v in params.items()
+               if isinstance(v, torch.Tensor)}
+        sub["rounds"] = [tuple(t[:AUG_PARITY_ROWS].cpu() for t in r)
+                         for r in params["rounds"]]
+        sub["cutout"] = tuple(t[:AUG_PARITY_ROWS].cpu()
+                              for t in params["cutout"])
+        cpu = tf.apply(batch[:AUG_PARITY_ROWS].cpu(), sub)
+        rows_differ = int((out[:AUG_PARITY_ROWS].cpu() != cpu)
+                          .flatten(1).any(1).sum())
+        transforms.append(dict(dataset=dataset, mode=mode, shape=shape,
+                               rows=AUG_BATCH, parity_rows=AUG_PARITY_ROWS,
+                               rows_differing_from_cpu=rows_differ,
+                               changed_share=float((out != batch).float()
+                                                   .mean())))
+        check(out.dtype == torch.uint8 and out.shape == batch.shape,
+              f"{dataset} {mode}: uint8 of the batch's shape")
+        check(rows_differ == 0, f"{dataset} {mode}: card equals CPU on "
+              f"{AUG_PARITY_ROWS} rows at the same draws ({rows_differ})")
+
+    # one step's images (250 + 1250) in strong mode: the card against the
+    # host's native backend on all its cores
+    tf = da.DeviceTransform("cifar10", "strong")
+    batch_np = rng.integers(0, 256, (AUG_BATCH, 32, 32, 3), np.uint8)
+    batch = torch.from_numpy(batch_np).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    card_ms = cuda_ms(lambda: tf(batch, gen), reps=10, warmup=2)
+    seeds = rng.integers(0, 2**63, AUG_BATCH, dtype=np.uint64)
+    host = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        native.augment_batch_native(batch_np, seeds, rand_n=2, rotation=0,
+                                    flip=True, pad=4, pad_reflect=True)
+        host.append(1e3 * (time.perf_counter() - t0))
+    result = dict(op_cases=cases, differing=differing,
+                  transforms=transforms, timed_rows=AUG_BATCH,
+                  card_strong_ms=card_ms,
+                  native_strong_ms=statistics.median(host[1:]),
+                  native_threads=os.cpu_count())
+    emit("device_aug", **result)
+    return result
+
+
+def _trace_h2d(trace_dir: str) -> dict:
+    """Host-to-device copies in the traced epoch's Chrome trace: their
+    count and bytes (the trace's ``bytes`` argument of each memcpy)."""
+    import glob
+    import os
+
+    (path,) = glob.glob(os.path.join(trace_dir, "*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    return dict(h2d_copies=len(copies),
+                h2d_bytes=sum(int(e.get("args", {}).get("bytes", 0))
+                              for e in copies),
+                h2d_bytes_known=all("bytes" in e.get("args", {})
+                                    for e in copies))
+
+
+def phase_device_data(train_tf32_ms: float, host: dict) -> dict:
+    """The driver with ``--device_data``: the fullysup phase's run with the
+    splits resident on the card and the augmentation there; returns K1's
+    and K2's launches, the work directory and its last checkpoint."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graphlearninglayer_tpu_torch.data import CHANNEL_STATS
+    from graphlearninglayer_tpu_torch.evalx import (encode_dataset,
+                                                    encode_dataset_resident)
+    from graphlearninglayer_tpu_torch.models import BuildNet
+    from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
+    from graphlearninglayer_tpu_torch.train import (create_train_state,
+                                                    fullysup,
+                                                    make_encode_step,
+                                                    make_lr_schedule)
+    from graphlearninglayer_tpu_torch.utils.checkpoint import \
+        restore_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = True    # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    home = os.getcwd()
+    work = tempfile.mkdtemp(prefix="gll_device_data_")
+    trace_dir = os.path.join(work, "trace")
+    os.environ["GLL_PROFILE_DIR"] = trace_dir
+    os.environ["GLL_PROFILE_EPOCH"] = str(DRIVER_EPOCHS)
+    try:
+        os.chdir(work)
+        t0 = time.perf_counter()
+        k1.fused_affinity_sym.launches = 0
+        k2.fused_knn.launches = 0
+        rec = fullysup.main(DRIVER_ARGV + [
+            "--device_data", "--synth_n_train", str(DRIVER_TRAIN),
+            "--synth_n_test", str(DRIVER_TEST),
+            "--epochs", str(DRIVER_EPOCHS)])
+        k1_launches = k1.fused_affinity_sym.launches
+        k2_launches = k2.fused_knn.launches
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("GLL_PROFILE_DIR", None)
+        os.environ.pop("GLL_PROFILE_EPOCH", None)
+        os.chdir(home)
+    steps = rec["steps_per_epoch"]
+    ms_per_step = [1e3 * s / steps for s in rec["epoch_s"]]
+    trace = _trace_busy_share(trace_dir)
+    h2d = _trace_h2d(trace_dir)
+    evals = [{k: e[k] for k in ("n_nodes", "cg_iters", "cg_err", "encode_s",
+                                "solve_s", "acc")} for e in rec["eval"]]
+    save = os.path.join(work, "save", "_Sup_and_SS_gl")
+    last = os.path.join(save, os.listdir(save)[0], "last")
+
+    # the resident encode of the run's last state against the streaming
+    # encode, on random images (a ragged last batch of 904 rows)
+    model = BuildNet("resnet18", num_classes=NUM_CLASSES)
+    state, _ = restore_checkpoint(last, create_train_state(
+        model, make_lr_schedule(0.01, 1, 1)))
+    images = np.random.default_rng(SEED + 5).integers(
+        0, 256, (DD_CHECK_ROWS, 32, 32, 3), np.uint8)
+    norm = CHANNEL_STATS["cifar10"]
+    stream = encode_dataset(make_encode_step(norm=norm), state, images)
+    resident = encode_dataset_resident(
+        state, torch.from_numpy(images.reshape(DD_CHECK_ROWS, -1)).cuda(),
+        DD_CHECK_ROWS, (32, 32, 3), norm)
+    bitwise = bool(torch.equal(stream, resident))
+
+    emit("device_data", argv=DRIVER_ARGV + ["--device_data"],
+         train=DRIVER_TRAIN, test=DRIVER_TEST, epochs=DRIVER_EPOCHS,
+         steps_per_epoch=steps, loader_backend=rec["loader_backend"],
+         cudnn_tf32=True, matmul_tf32=False, wall_s=wall,
+         epoch_s=rec["epoch_s"], ms_per_step=ms_per_step,
+         ms_per_step_note=("epoch 1 includes the first steps' warm-up; "
+                           "epoch 2 runs under the profiler"),
+         host_pipeline_ms_per_step=host["ms_per_step"],
+         train_phase_tf32_ms_per_step=train_tf32_ms,
+         traced_epoch=DRIVER_EPOCHS, trace=trace,
+         h2d_bytes_per_step=h2d["h2d_bytes"] / steps,
+         h2d_copies_per_step=h2d["h2d_copies"] / steps,
+         h2d_bytes_known=h2d["h2d_bytes_known"],
+         host_pipeline_image_bytes_per_step=(N_BASE + N_BATCH) * 32 * 32 * 3,
+         evals=evals, test_acc=rec["test_acc"], loss=rec["loss"],
+         train_acc=rec["train_acc"], chance=100.0 / NUM_CLASSES,
+         k1_launches=k1_launches, k2_launches=k2_launches,
+         resident_encode_rows=DD_CHECK_ROWS,
+         resident_encode_bitwise=bitwise)
+    check(rec["loader_backend"] == "device", "augmentation on the card")
+    check(len(rec["loss"]) == DRIVER_EPOCHS
+          and all(math.isfinite(v) for v in rec["loss"]),
+          "finite loss every epoch")
+    check(k1_launches == DRIVER_EPOCHS * steps,
+          f"K1 once a GL step ({k1_launches} in {DRIVER_EPOCHS * steps})")
+    check(len(evals) == DRIVER_EPOCHS + 1 and k2_launches == len(evals)
+          and all(e["n_nodes"] == EVAL_N for e in evals),
+          f"K2 once in each of {DRIVER_EPOCHS + 1} resident evals of "
+          f"{EVAL_N} nodes ({k2_launches})")
+    check(all(e["cg_err"] <= 1e-10 for e in evals),
+          f"every eval's CG converged ({[e['cg_err'] for e in evals]})")
+    check(all(a > 100.0 / NUM_CLASSES for a in rec["test_acc"]),
+          f"every eval's accuracy above chance ({rec['test_acc']})")
+    check(h2d["h2d_bytes_known"] and h2d["h2d_bytes"] / steps
+          <= DD_MAX_H2D_BYTES_PER_STEP,
+          f"host-to-device bytes a step ({h2d}) within "
+          f"{DD_MAX_H2D_BYTES_PER_STEP}")
+    check(bitwise, "the resident encode equals the streaming encode")
+    return dict(k1_launches=k1_launches, k2_launches=k2_launches,
+                work=work, ckpt=last)
+
+
+def phase_compare() -> int:
+    """compare_to_mlp at the CLI defaults on the synthetic CIFAR-geometry
+    set, and a check that one step's GL loss comes from the parameters
+    before its update; returns K1's launches in the driver's run."""
+    import copy
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from graphlearninglayer_tpu_torch.data import (CHANNEL_STATS,
+                                                   normalize_batch)
+    from graphlearninglayer_tpu_torch.models import BuildNet
+    from graphlearninglayer_tpu_torch.ops import laplace_learning
+    from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.train import (compare_to_mlp,
+                                                    create_train_state,
+                                                    custom_ce_loss,
+                                                    make_lr_schedule)
+    from graphlearninglayer_tpu_torch.train.trainer import _device_normalize
+
+    torch.backends.cudnn.allow_tf32 = True
+    home = os.getcwd()
+    work = tempfile.mkdtemp(prefix="gll_compare_")
+    try:
+        os.chdir(work)
+        k1.fused_affinity_sym.launches = 0
+        rec = compare_to_mlp.main([
+            "--dataset", "cifar10", "--synth_n_train", str(COMPARE_TRAIN),
+            "--synth_n_test", "1000", "--epochs", str(SHORT_EPOCHS)])
+        launches = k1.fused_affinity_sym.launches
+        saved = os.path.isfile(os.path.join(
+            work, "save", "_Sup_and_SS", os.listdir(os.path.join(
+                work, "save", "_Sup_and_SS"))[0], "compare_records.npy"))
+    finally:
+        os.chdir(home)
+        shutil.rmtree(work, ignore_errors=True)
+    steps = rec["steps_per_epoch"]
+
+    # one step at the same shape: its GL loss is the one of the model as
+    # it was before the step (eval mode, pre-update BN statistics)
+    rng = np.random.default_rng(SEED + 6)
+    images = rng.integers(0, 256, (N_BASE + N_BATCH, 32, 32, 3), np.uint8)
+    labels = rng.integers(0, NUM_CLASSES, N_BASE + N_BATCH)
+    norm = CHANNEL_STATS["cifar10"]
+    base_x = normalize_batch(images[:N_BASE], *norm)
+    state = create_train_state(
+        BuildNet("resnet18", num_classes=NUM_CLASSES,
+                 generator=torch.Generator().manual_seed(SEED)),
+        make_lr_schedule(0.01, 1, 1))
+    # epsilon 1: the CLI's default, as in the driver's run above
+    step = compare_to_mlp.make_compare_step(NUM_CLASSES, base_x,
+                                            labels[:N_BASE], tau=TAU,
+                                            epsilon=1.0, k=K, norm=norm)
+    before = copy.deepcopy(state.model)
+    state, _, gl_loss = step(state, images[N_BASE:], labels[N_BASE:])
+    x = torch.cat([_device_normalize(torch.from_numpy(base_x).cuda(), None),
+                   _device_normalize(torch.from_numpy(images[N_BASE:])
+                                     .cuda(), norm)])
+    y = F.one_hot(torch.as_tensor(labels[:N_BASE]).cuda(), NUM_CLASSES)
+    target = torch.as_tensor(labels[N_BASE:]).cuda()
+
+    @torch.no_grad()
+    def gl_loss_of(model):
+        model.eval()
+        _, feats = model(x)
+        return custom_ce_loss(laplace_learning(
+            feats, y.float(), tau=TAU, epsilon=1.0, k=K), target).item()
+
+    pre, post = gl_loss_of(before), gl_loss_of(state.model)
+    result = dict(steps_per_epoch=steps, epochs=SHORT_EPOCHS,
+                  epoch_s=rec["epoch_s"],
+                  ms_per_step=[1e3 * s / steps for s in rec["epoch_s"]],
+                  mlp_loss=rec["mlp_loss"], gl_loss=rec["gl_loss"],
+                  k1_launches=launches, records_saved=saved,
+                  step_gl_loss=gl_loss.item(), pre_update_gl_loss=pre,
+                  post_update_gl_loss=post)
+    emit("compare", train=COMPARE_TRAIN, **result)
+    check(launches == SHORT_EPOCHS * steps,
+          f"compare: K1 once a step ({launches} in {SHORT_EPOCHS * steps})")
+    check(all(math.isfinite(v) for v in rec["mlp_loss"] + rec["gl_loss"]),
+          "compare: finite losses")
+    check(saved, "compare: compare_records.npy written")
+    check(abs(gl_loss.item() - pre) <= 1e-5 * abs(pre) and post != pre,
+          f"compare: the GL loss is the pre-update model's ({gl_loss.item()}"
+          f" against {pre} before and {post} after the update)")
+    return launches
+
+
+def phase_supcon() -> dict:
+    """SupCon and SimCLR, on the host path and with --device_data,
+    ResNet-18 at batch 1250 x 2 views; each checkpoint restored."""
+    import os
+    import tempfile
+
+    import torch
+
+    from graphlearninglayer_tpu_torch.config.cli import parse_option
+    from graphlearninglayer_tpu_torch.models import BuildNet
+    from graphlearninglayer_tpu_torch.train import (create_train_state,
+                                                    make_lr_schedule, supcon)
+    from graphlearninglayer_tpu_torch.utils.checkpoint import \
+        restore_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = True
+    home = os.getcwd()
+    work = tempfile.mkdtemp(prefix="gll_supcon_")
+    runs = []
+    try:
+        os.chdir(work)
+        for method in ("SupCon", "SupCE"):        # SupCE trains SimCLR
+            for extra in ([], ["--device_data"]):
+                path = "device" if extra else "host"
+                argv = ["--dataset", "cifar10", "--synth_n_train",
+                        str(SUPCON_TRAIN), "--synth_n_test", "100",
+                        "--epochs", str(SHORT_EPOCHS), "--sup_method",
+                        method, "--train_prefix", path] + extra
+                rec = supcon.main(argv)
+                state, epoch = restore_checkpoint(
+                    os.path.join(parse_option(argv).save_folder, "supcon"),
+                    create_train_state(BuildNet("resnet18"),
+                                       make_lr_schedule(0.01, 1, 1)))
+                steps = rec["steps_per_epoch"]
+                run = dict(method="SupCon" if method == "SupCon"
+                           else "SimCLR", path=path, loss=rec["loss"],
+                           epoch_s=rec["epoch_s"], steps_per_epoch=steps,
+                           ms_per_step=[1e3 * s / steps
+                                        for s in rec["epoch_s"]],
+                           restored_epoch=epoch, restored_step=state.step)
+                runs.append(run)
+                check(len(rec["loss"]) == SHORT_EPOCHS
+                      and all(math.isfinite(v) for v in rec["loss"]),
+                      f"supcon {method} {path}: finite losses")
+                check(epoch == SHORT_EPOCHS
+                      and state.step == SHORT_EPOCHS * steps,
+                      f"supcon {method} {path}: checkpoint restored")
+    finally:
+        os.chdir(home)
+        shutil.rmtree(work, ignore_errors=True)
+    emit("supcon", train=SUPCON_TRAIN, batch=N_BATCH, views=2, runs=runs)
+    return {f"{r['method']}_{r['path']}": r["ms_per_step"][-1] for r in runs}
+
+
+def phase_visualize(ckpt: str) -> dict:
+    """The visualize CLI on the device_data run's last checkpoint."""
+    import contextlib
+    import importlib
+    import io
+
+    import numpy as np
+
+    # the module (the package's name 'visualize' is its function)
+    viz = importlib.import_module(
+        "graphlearninglayer_tpu_torch.evalx.visualize")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        feats = viz.main([ckpt, "--dataset", "cifar10", "--max_points",
+                          str(VIZ_POINTS), "--probe"])
+    out = buf.getvalue()
+    lines = [ln for ln in out.splitlines()
+             if "skipped" in ln or "Accuracy" in ln or "restored" in ln]
+    shapes = {k: list(v[0].shape) for k, v in feats.items()}
+    result = dict(wall_s=time.perf_counter() - t0, shapes=shapes,
+                  lines=lines)
+    emit("visualize", **result)
+    check(shapes == {"train": [VIZ_POINTS, 128],
+                     "test": [min(VIZ_POINTS, 1024), 128]},
+          f"visualize: features of the expected counts ({shapes})")
+    check(all(np.isfinite(v[0]).all() for v in feats.values()),
+          "visualize: finite features")
+    check(f"restored checkpoint epoch {DRIVER_EPOCHS}" in out,
+          "visualize: the checkpoint restored")
+    check(("plots skipped" in out or "_umap.png" in out)
+          and ("probe skipped" in out or "Classifier Accuracy" in out),
+          "visualize: plots and probe ran or said skipped")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1410,8 +1959,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     k3_stats = phase_k3()
     phase_op_edge()
-    phase_fullysup(tf32_ms)
+    host = phase_fullysup(tf32_ms)
     adv = phase_adversarial()
+    phase_device_aug()
+    dd = phase_device_data(tf32_ms, host)
+    try:
+        phase_visualize(dd["ckpt"])
+    finally:
+        shutil.rmtree(dd["work"], ignore_errors=True)
+    compare_launches = phase_compare()
+    phase_supcon()
     k1_main, k2_main = k1_stats[1500], k2_stats[EVAL_N]
     kernels = [{
         "name": "fused_affinity_sym",
@@ -1434,6 +1991,9 @@ def main() -> int:
         # device times at its shapes
         "launches_adversarial": adv["launches"],
         "adversarial_shapes": adv["k1_shapes"],
+        # the compare driver's run and the --device_data driver run
+        "launches_compare": compare_launches,
+        "launches_device_data": dd["k1_launches"],
     }, {
         "name": "fused_knn",
         "route": "cuda",
@@ -1448,6 +2008,7 @@ def main() -> int:
         "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"],
         "bound_share": k2_main["bound_ms"] / k2_main["ms"],
+        "launches_device_data": dd["k2_launches"],
     }, {
         "name": "fused_affinity",
         "route": "cuda",

@@ -3,8 +3,10 @@ from .augment import (Lighting, RandAugment, Transform, cutout_default,
 from .datasets import (CHANNEL_STATS, DATASETS, DatasetSpec, load_dataset,
                        parse_synth_overrides, synth_kwargs_from_opt,
                        synthetic_dataset)
+from .device_aug import DeviceTransform
 from .pipeline import (BatchLoader, ScoredDataset, TwoCropBatchLoader,
                        downsample_by_stride, select_base_indices)
+from .pseudo_label import PseudoLabelStore, convert_outputs_to_pseudo_labels
 
 __all__ = [
     "Lighting", "RandAugment", "Transform", "cutout_default",
@@ -12,5 +14,6 @@ __all__ = [
     "CHANNEL_STATS", "DATASETS", "DatasetSpec", "load_dataset",
     "parse_synth_overrides", "synth_kwargs_from_opt", "synthetic_dataset",
     "BatchLoader", "ScoredDataset", "TwoCropBatchLoader",
-    "downsample_by_stride", "select_base_indices",
+    "downsample_by_stride", "select_base_indices", "DeviceTransform",
+    "PseudoLabelStore", "convert_outputs_to_pseudo_labels",
 ]

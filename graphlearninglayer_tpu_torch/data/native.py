@@ -27,7 +27,8 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["native_available", "augment_batch_native",
-           "normalize_batch_native", "apply_op_native", "OP_IDS"]
+           "normalize_batch_native", "apply_op_native", "rotate_native",
+           "mirror_native", "pad_crop_native", "cutout_native", "OP_IDS"]
 
 _SRC = Path(__file__).resolve().parent / "native" / "augment.cpp"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -87,6 +88,14 @@ def _load():
         i, d = ctypes.c_int, ctypes.c_double
         lib.gll_apply_op.argtypes = [_u8p, _u8p, i, i, i, i, d, i]
         lib.gll_apply_op.restype = None
+        lib.gll_rotate.argtypes = [_u8p, _u8p, i, i, i, d]
+        lib.gll_rotate.restype = None
+        lib.gll_mirror.argtypes = [_u8p, _u8p, i, i, i]
+        lib.gll_mirror.restype = None
+        lib.gll_pad_crop.argtypes = [_u8p, _u8p, i, i, i, i, i, i, i]
+        lib.gll_pad_crop.restype = None
+        lib.gll_cutout.argtypes = [_u8p, i, i, i, d, d, d]
+        lib.gll_cutout.restype = None
         lib.gll_augment_batch.argtypes = [_u8p, _u8p, i, i, i, i, _u64p,
                                           i, i, i, i, i, i]
         lib.gll_augment_batch.restype = None
@@ -118,6 +127,48 @@ def apply_op_native(img: np.ndarray, op: str | int, v: float,
     out = np.empty_like(img)
     op_id = OP_IDS[op] if isinstance(op, str) else int(op)
     lib.gll_apply_op(img, out, h, w, c, op_id, float(v), int(sign))
+    return out
+
+
+def rotate_native(img: np.ndarray, deg: float) -> np.ndarray:
+    """PIL ``Image.rotate(deg)`` (nearest, zero fill) of a uint8 HWC
+    image."""
+    lib = _require()
+    img = np.ascontiguousarray(img, np.uint8)
+    out = np.empty_like(img)
+    lib.gll_rotate(img, out, *img.shape, float(deg))
+    return out
+
+
+def mirror_native(img: np.ndarray) -> np.ndarray:
+    """Left-right mirror of a uint8 HWC image."""
+    lib = _require()
+    img = np.ascontiguousarray(img, np.uint8)
+    out = np.empty_like(img)
+    lib.gll_mirror(img, out, *img.shape)
+    return out
+
+
+def pad_crop_native(img: np.ndarray, pad: int, reflect: bool, i: int,
+                    j: int) -> np.ndarray:
+    """Pad by ``pad`` (zeros, or reflect without edge repeat) and crop the
+    image's size back at row ``i``, column ``j``."""
+    lib = _require()
+    img = np.ascontiguousarray(img, np.uint8)
+    out = np.empty_like(img)
+    lib.gll_pad_crop(img, out, *img.shape, int(pad), int(reflect), int(i),
+                     int(j))
+    return out
+
+
+def cutout_native(img: np.ndarray, frac: float, r1: float,
+                  r2: float) -> np.ndarray:
+    """The transform's cutout: a gray square of side ``frac`` * W centered
+    at (r1 * W, r2 * H), its corners computed by the C function the batch
+    transform calls."""
+    lib = _require()
+    out = np.array(img, np.uint8, copy=True, order="C")
+    lib.gll_cutout(out, *out.shape, float(frac), float(r1), float(r2))
     return out
 
 

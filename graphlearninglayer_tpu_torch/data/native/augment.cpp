@@ -293,6 +293,19 @@ void cutout_rect(uint8_t* img, int h, int w, int c, int x0, int y0, int x1,
     }
 }
 
+// The transform's cutout: a gray square of side frac * w centered at
+// (r1 * w, r2 * h), its corners truncated toward zero (augment.py:117).
+void cutout(uint8_t* img, int h, int w, int c, double frac, double r1,
+            double r2) {
+  if (frac <= 0) return;
+  double v = frac * w;
+  double x0 = std::max(0.0, r1 * w - v / 2.0);
+  double y0 = std::max(0.0, r2 * h - v / 2.0);
+  cutout_rect(img, h, w, c, (int)x0, (int)y0,
+              (int)std::min((double)w, x0 + v),
+              (int)std::min((double)h, y0 + v));
+}
+
 // ---------------------------------------------------------------------------
 // RandAugment op dispatch (ids match data/augment.py _AUGMENT_LIST order,
 // reference config/augmentations.py:155-174)
@@ -380,12 +393,9 @@ void augment_one(const uint8_t* in, uint8_t* out, int h, int w, int c,
   std::memcpy(out, cur, (size_t)h * w * c);
   double frac = rng.uniform() * 0.5;
   if (frac > 0) {
-    double v = frac * w;
-    double x0 = std::max(0.0, rng.uniform() * w - v / 2.0);
-    double y0 = std::max(0.0, rng.uniform() * h - v / 2.0);
-    cutout_rect(out, h, w, c, (int)x0, (int)y0,
-                (int)std::min((double)w, x0 + v),
-                (int)std::min((double)h, y0 + v));
+    double r1 = rng.uniform();
+    double r2 = rng.uniform();
+    cutout(out, h, w, c, frac, r1, r2);
   }
 }
 
@@ -427,9 +437,9 @@ void gll_pad_crop(const uint8_t* in, uint8_t* out, int h, int w, int c,
   pad_crop(in, out, h, w, c, pad, reflect, i, j);
 }
 
-void gll_cutout_rect(uint8_t* img, int h, int w, int c, int x0, int y0,
-                     int x1, int y1) {
-  cutout_rect(img, h, w, c, x0, y0, x1, y1);
+void gll_cutout(uint8_t* img, int h, int w, int c, double frac, double r1,
+                double r2) {
+  cutout(img, h, w, c, frac, r1, r2);
 }
 
 // Batch augmentation, multithreaded over images.

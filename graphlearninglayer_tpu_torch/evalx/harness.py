@@ -2,13 +2,15 @@
 over the whole dataset.
 
 Twin of ``graphlearninglayer_tpu/evalx/harness.py`` (``encode_dataset``,
-``test_network`` and the single-device branch of ``test_gl_transductive``).
-The transductive eval encodes base + train + test images on the device,
-then builds one k=50 graph over all of them and runs one CG solve
-(``ops.transductive_laplace``); accuracy on the test slice.
+``encode_dataset_resident``, ``test_network`` and the single-device
+branches of ``test_gl_transductive``).  The transductive eval encodes base
++ train + test images on the device, then builds one k=50 graph over all of
+them and runs one CG solve (``ops.transductive_laplace``); accuracy on the
+test slice.  With ``resident=`` (the ``--device_data`` eval) the train and
+test sets already lie on the device and no image crosses from the host.
 
-Not ported yet: ``encode_dataset_resident`` and the sharded eval (``mesh=``,
-``resident=`` raise ``NotImplementedError``).
+Not ported yet: the sharded eval (``mesh=`` raises
+``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -21,10 +23,12 @@ import torch
 
 from ..ops import transductive_laplace
 from ..ops.transductive import eval_debug
-from ..train.trainer import (TrainState, make_encode_step, make_gl_eval_step,
+from ..train.trainer import (TrainState, make_encode_step,
+                             make_encode_step_from_data, make_gl_eval_step,
                              make_mlp_eval_step, resolve_device)
 
-__all__ = ["encode_dataset", "test_network", "test_gl_transductive"]
+__all__ = ["encode_dataset", "encode_dataset_resident", "test_network",
+           "test_gl_transductive"]
 
 
 def encode_dataset(encode_step, state: TrainState, images: np.ndarray,
@@ -46,6 +50,28 @@ def encode_dataset(encode_step, state: TrainState, images: np.ndarray,
         if normalize_fn is not None:
             chunk = normalize_fn(chunk)
         feats.append(encode_step(state, chunk)[:real])
+    return torch.cat(feats)
+
+
+def encode_dataset_resident(state: TrainState, data_dev: torch.Tensor,
+                            n: int, image_shape, norm,
+                            batch_size: int = 1024,
+                            device="cuda") -> torch.Tensor:
+    """Features of the first ``n`` rows of a device-resident (N, H*W*C)
+    uint8 dataset, in batches of ``min(batch_size, n)`` rows.  The tail
+    batch re-slices the last ``batch`` rows (overlapping the batch before
+    it), so every batch has one shape and every row is encoded exactly
+    once: the features equal ``encode_dataset``'s over the same images and
+    batch size bit for bit.  Returns the (n, feat_dim) features on the
+    device."""
+    dev = resolve_device(device)
+    batch = min(batch_size, n)
+    step = make_encode_step_from_data(image_shape, batch, norm=norm,
+                                      device=dev)
+    feats = []
+    for i in range(0, n, batch):
+        start = min(i, n - batch)
+        feats.append(step(state, data_dev, start)[i - start:])
     return torch.cat(feats)
 
 
@@ -122,29 +148,43 @@ def test_gl_transductive(state: TrainState, base_images, base_labels,
     eval fills with ``n_nodes``, ``encode_s``, ``solve_s`` (host clock, each
     ending in a device sync), ``cg_iters`` and ``cg_err``.
 
-    ``mesh`` (with ``shard_min_n``) and ``resident`` belong to the sharded
-    and device-resident eval paths, which are not ported yet: they
-    raise."""
+    ``resident=(train_dev, test_dev, base_idx, image_shape)``: the
+    device-resident eval.  The train and test sets are (N, H*W*C) uint8
+    tensors on the device, encoded by ``encode_dataset_resident``, and the
+    base features are a row gather of the train features at ``base_idx``
+    (the base set is rows of the train split).  Needs ``norm``; the graph
+    and the solve are those of the streaming eval.
+
+    ``mesh`` (with ``shard_min_n``) belongs to the sharded eval, which is
+    not ported yet: it raises."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: the edge-sharded transductive eval is not ported yet "
             "(ROADMAP.md, section 1, slice 6, item 22)")
-    if resident is not None:
-        raise NotImplementedError(
-            "resident=: the device-resident eval (encode_dataset_resident) "
-            "is not ported yet (ROADMAP.md, section 1, slice 6, item 21)")
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    encode_step = make_encode_step(norm=norm, device=dev)
-    host_norm = normalize_fn if norm is None else None
-    parts = [encode_dataset(encode_step, state, base_images, host_norm,
-                            batch_size)]
-    if train_images is not None:
-        parts.append(encode_dataset(encode_step, state, train_images,
+    if resident is not None:
+        if norm is None:
+            raise ValueError("resident= needs norm=(mean, std)")
+        train_dev, test_dev, base_idx, image_shape = resident
+        train_f = encode_dataset_resident(state, train_dev, len(train_dev),
+                                          image_shape, norm, batch_size, dev)
+        test_f = encode_dataset_resident(state, test_dev, len(test_dev),
+                                         image_shape, norm, batch_size, dev)
+        base_f = train_f.index_select(
+            0, torch.as_tensor(np.asarray(base_idx), device=dev))
+        all_f = torch.cat([base_f, train_f, test_f])
+    else:
+        encode_step = make_encode_step(norm=norm, device=dev)
+        host_norm = normalize_fn if norm is None else None
+        parts = [encode_dataset(encode_step, state, base_images, host_norm,
+                                batch_size)]
+        if train_images is not None:
+            parts.append(encode_dataset(encode_step, state, train_images,
+                                        host_norm, batch_size))
+        parts.append(encode_dataset(encode_step, state, test_images,
                                     host_norm, batch_size))
-    parts.append(encode_dataset(encode_step, state, test_images, host_norm,
-                                batch_size))
-    all_f = torch.cat(parts)
+        all_f = torch.cat(parts)
     y = torch.as_tensor(np.eye(num_classes, dtype=np.float32)[base_labels],
                         device=dev)
     if dev.type == "cuda":

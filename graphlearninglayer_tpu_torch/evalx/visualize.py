@@ -8,8 +8,15 @@ matplotlib are imported when a function runs, never when the module is
 imported, and a driver that calls :func:`visualize` treats a missing
 package as "visualization skipped".
 
-The JAX package's standalone checkpoint-visualization CLI (``main``) is not
-ported.
+``main`` is the standalone CLI: it restores a checkpoint of this package
+(``utils/checkpoint.py``), encodes up to ``--max_points`` train and test
+images on the card (or, with ``--dev cpu``, on the CPU), writes the
+embedding PNG pair per split and, with ``--probe``, prints a linear-probe
+accuracy; the plots and the probe print "skipped" where matplotlib or
+sklearn is missing:
+
+    python -m graphlearninglayer_tpu_torch.evalx.visualize CKPT \
+        --dataset cifar10 [--probe] [--dev cpu]
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ import os
 import numpy as np
 
 __all__ = ["embed_2d", "plot_embedding", "linear_probe_accuracy",
-           "visualize"]
+           "visualize", "main"]
 
 
 def embed_2d(features: np.ndarray, method: str = "auto",
@@ -87,3 +94,92 @@ def visualize(features: np.ndarray, labels: np.ndarray, save_dir: str,
                        os.path.join(save_dir, f"{prefix}_tsne.png"),
                        base_mask, f"{prefix} (t-SNE)")
     return emb
+
+
+def main(argv=None) -> dict:
+    """Standalone checkpoint visualization: restore a checkpoint, encode
+    train and test features, write the embedding PNG pair per split,
+    optionally report a linear-probe accuracy on the frozen features.
+    Returns ``{split: (features (n, d) float32, labels)}``."""
+    import argparse
+
+    parser = argparse.ArgumentParser("visualize a saved checkpoint")
+    parser.add_argument("ckpt", help="checkpoint directory or .pth file")
+    parser.add_argument("--dataset", type=str, default="cifar10")
+    parser.add_argument("--model", type=str, default="resnet18")
+    parser.add_argument("--head", type=str, default="mlp",
+                        choices=["linear", "mlp", "no"])
+    parser.add_argument("--embedding_dim", type=int, default=128)
+    parser.add_argument("--tsne", action="store_true",
+                        help="also produce t-SNE plots")
+    parser.add_argument("--probe", action="store_true",
+                        help="SGD linear-probe accuracy on frozen features")
+    parser.add_argument("--save_dir", type=str, default=None,
+                        help="output dir (default: the checkpoint dir)")
+    parser.add_argument("--max_points", type=int, default=10000,
+                        help="cap on points embedded per split")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--dev", type=str, default="cuda",
+                        help="device: cuda (the default) or cpu")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from ..data import CHANNEL_STATS, Transform, load_dataset
+    from ..models import BuildNet
+    from ..train.optim import make_lr_schedule
+    from ..train.trainer import (create_train_state, make_encode_step,
+                                 resolve_device)
+    from ..utils.checkpoint import restore_checkpoint
+    from .harness import encode_dataset
+
+    if args.dev == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --dev cpu to run on "
+                           "the CPU")
+    dev = resolve_device(args.dev)
+    spec = load_dataset(args.dataset, allow_synthetic_fallback=True)
+    tf = Transform(spec.name if spec.name in CHANNEL_STATS else "synthetic",
+                   "eval")
+    model = BuildNet(name=args.model, head=args.head,
+                     feat_dim=args.embedding_dim,
+                     num_classes=spec.num_classes,
+                     in_channel=spec.image_shape[-1])
+    state = create_train_state(model, make_lr_schedule(0.1, 1, 1),
+                               device=dev)
+    state, epoch = restore_checkpoint(args.ckpt, state)
+    print(f"restored checkpoint epoch {epoch} from {args.ckpt}")
+
+    save_dir = args.save_dir or (args.ckpt if os.path.isdir(args.ckpt)
+                                 else os.path.dirname(args.ckpt))
+    encode_step = make_encode_step(norm=(tf.mean, tf.std), device=dev)
+    rng = np.random.default_rng(args.seed)
+    splits = {"train": (spec.train_images, spec.train_labels),
+              "test": (spec.test_images, spec.test_labels)}
+    feats = {}
+    for name, (images, labels) in splits.items():
+        if len(images) > args.max_points:
+            sel = rng.permutation(len(images))[:args.max_points]
+            images, labels = images[sel], labels[sel]
+        f = encode_dataset(encode_step, state, images).float().cpu().numpy()
+        feats[name] = (f, labels)
+        prefix = f"{args.dataset}_{name}"
+        print(f"{name}: encoded {len(f)} points")
+        try:
+            visualize(f, labels, save_dir, tsne=args.tsne, seed=args.seed,
+                      prefix=prefix)
+            print(f"{name}: embedded -> {save_dir}/{prefix}_umap.png")
+        except ImportError as e:
+            print(f"{name}: plots skipped ({e})")
+
+    if args.probe:
+        try:
+            acc = linear_probe_accuracy(*feats["train"], *feats["test"],
+                                        seed=args.seed)
+            print(f"Linear Classifier Accuracy is {100 * acc:.2f}%")
+        except ImportError as e:
+            print(f"linear probe skipped ({e})")
+    return feats
+
+
+if __name__ == "__main__":
+    main()

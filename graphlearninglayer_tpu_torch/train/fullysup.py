@@ -13,9 +13,14 @@ Run on the card (the default) or, with ``--dev cpu``, on the CPU:
     python -m graphlearninglayer_tpu_torch.train.fullysup \\
         --sup_train_type gl --dataset cifar10 --cosine [--epsilon auto ...]
 
+``--device_data`` keeps the uint8 train and test splits on the device:
+each step sends only index and label vectors, gathers its rows and augments
+them on the device (``data/device_aug.py``), and the transductive eval
+encodes the resident splits.
+
 Not ported yet (they raise ``NotImplementedError``, ROADMAP.md slice 6):
-``--device_data``, ``--mesh N`` with N > 1 (``auto`` with one visible
-device runs as ``off``) and multi-process runs.
+``--mesh N`` with N > 1 (``auto`` with one visible device runs as ``off``)
+and multi-process runs.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 from ..config.cli import parse_option
 from ..data import (BatchLoader, ScoredDataset, Transform, load_dataset,
                     synth_kwargs_from_opt)
+from ..data.device_aug import DeviceTransform
 from ..data.pipeline import downsample_by_stride
 from ..evalx import encode_dataset, test_gl_transductive, test_network
 from ..models import BuildNet
@@ -40,7 +46,8 @@ from .losses import custom_ce_loss
 from .optim import make_lr_schedule
 from .trainer import (_device_normalize, create_train_state,
                       make_encode_step, make_gl_train_step,
-                      make_mlp_train_step, resolve_device)
+                      make_gl_train_step_from_data, make_mlp_train_step,
+                      make_mlp_train_step_from_data, resolve_device)
 
 __all__ = ["main", "run_training", "pretrain_linear"]
 
@@ -109,10 +116,6 @@ def _records_and_plots(save_folder, records):
 def _check_single_device(opt, dev: torch.device) -> None:
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(f"a multi-process run {_NOT_PORTED}")
-    if getattr(opt, "device_data", False):
-        raise NotImplementedError(
-            f"--device_data (device-resident data and augmentation) "
-            f"{_NOT_PORTED}")
     mesh_opt = str(getattr(opt, "mesh", "off"))
     if mesh_opt != "off":
         n_visible = torch.cuda.device_count() if dev.type == "cuda" else 1
@@ -128,8 +131,9 @@ def run_training(opt) -> dict:
     ``train_acc``, ``epoch_s`` (the step loop's seconds, ending in a
     device sync) and ``cg_iters`` (mean forward + adjoint CG iterations a
     step, with ``--gl_solver cg``), ``steps_per_epoch``, every eval's
-    ``test_acc`` and its transductive ``eval`` stats, and the loader's
-    augmentation backend (``loader_backend``)."""
+    ``test_acc`` and its transductive ``eval`` stats, and the augmentation
+    backend (``loader_backend``: the loader's, or ``device`` with
+    ``--device_data``)."""
     if opt.dev == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --dev cpu to run on "
                            "the CPU")
@@ -191,12 +195,28 @@ def run_training(opt) -> dict:
     # the tau convention: the train step passes --temp as tau to the GL op,
     # the transductive eval uses --tau
     grad_warn = getattr(opt, "grad_warn", 10.0) or None
-    gl_step = make_gl_train_step(num_classes, tau=opt.temp,
-                                 epsilon=opt.epsilon, k=opt.knn_k,
-                                 solver=opt.gl_solver,
-                                 score_type=opt.gl_score_type,
-                                 norm=step_norm, device=dev)
-    mlp_step = make_mlp_train_step(norm=step_norm, device=dev)
+    gl_kw = dict(tau=opt.temp, epsilon=opt.epsilon, k=opt.knn_k,
+                 solver=opt.gl_solver, score_type=opt.gl_score_type,
+                 norm=step_norm, device=dev)
+    # --device_data: the uint8 splits are copied to the device once, rows
+    # flattened; each step gathers and augments its rows there, so a step
+    # copies only index and label vectors
+    device_data = bool(getattr(opt, "device_data", False))
+    if device_data:
+        flat = lambda a: torch.from_numpy(
+            np.ascontiguousarray(a.reshape(len(a), -1))).to(dev)
+        data_dev, test_dev = flat(spec.train_images), flat(spec.test_images)
+        aug_kw = dict(aug=DeviceTransform(sup_tf.dataset, sup_tf.mode),
+                      generator=torch.Generator(device=dev).manual_seed(
+                          opt.seed))
+        rng_order = np.random.default_rng(opt.seed * 7919 + 1)
+        gl_step = make_gl_train_step_from_data(
+            num_classes, spec.image_shape, **aug_kw, **gl_kw)
+        mlp_step = make_mlp_train_step_from_data(
+            spec.image_shape, norm=step_norm, device=dev, **aug_kw)
+    else:
+        gl_step = make_gl_train_step(num_classes, **gl_kw)
+        mlp_step = make_mlp_train_step(norm=step_norm, device=dev)
 
     # --ds_stepsize strides only the pool the initial class-uniform base
     # sample is drawn from; the train/test splits and later score-based
@@ -212,12 +232,16 @@ def run_training(opt) -> dict:
     else:
         base_imgs, base_labels, base_sel = ds.select_base(
             opt.num_train, "random", rng_np, return_indices=True)
+    if device_data:
+        base_dev = (torch.as_tensor(base_sel, device=dev),
+                    torch.as_tensor(base_labels, device=dev))
+    backend = "device" if device_data else loader.backend
     records = {"loss": [], "train_acc": [], "test_acc": [], "epoch_s": [],
                "cg_iters": [], "eval": [], "steps_per_epoch": len(loader),
-               "loader_backend": loader.backend}
+               "loader_backend": backend}
     print(f"data: {spec.name} {tuple(spec.image_shape)}, "
           f"{len(spec.train_labels)} train / {len(spec.test_labels)} test, "
-          f"{len(loader)} steps an epoch, {loader.backend} augmentation")
+          f"{len(loader)} steps an epoch, {backend} augmentation")
 
     edges_per_step = 2 * (opt.num_train + opt.batch_size) * opt.knn_k
 
@@ -231,13 +255,17 @@ def run_training(opt) -> dict:
         # the gl branch reports the transductive accuracy; the mlp branch
         # also runs the transductive eval (discarded, as in the reference)
         # and reports test_network with the MLP predictor
+        # --device_data: the eval encodes the resident splits, and the base
+        # features are a row gather of the train features
         stats = {}
+        resident = ((data_dev, test_dev, base_sel, spec.image_shape)
+                    if device_data else None)
         tacc = test_gl_transductive(
             state, base_imgs, base_labels, spec.test_images,
             spec.test_labels, eval_tf.normalize, num_classes,
             train_images=spec.train_images, knn_num=50, epsilon=opt.epsilon,
-            tau=opt.tau, norm=eval_norm, cache=eval_cache, device=dev,
-            stats=stats)
+            tau=opt.tau, norm=eval_norm, resident=resident,
+            cache=eval_cache, device=dev, stats=stats)
         records["eval"].append(dict(stats, acc=tacc))
         if opt.sup_train_type == "mlp":
             return test_network(
@@ -331,17 +359,34 @@ def run_training(opt) -> dict:
         # copied to the device one step ahead; the fixed count keeps the
         # augmentation RNG stream identical across base refreshes
         base_iter = (loader.base_batches(base_imgs, base_labels)
-                     if opt.sup_train_type == "gl" else None)
+                     if opt.sup_train_type == "gl" and not device_data
+                     else None)
+        if device_data:
+            # the step count is the loader's; the loader itself never runs
+            order = rng_order.permutation(len(ds))
+            bs = opt.batch_size
+            stream = ((order[i * bs:(i + 1) * bs], None,
+                       ds.labels[order[i * bs:(i + 1) * bs]])
+                      for i in range(len(loader)))
+        else:
+            stream = loader
         with trace_steps(profile_dir, enabled=epoch == profile_epoch):
-            for idx, (indices, images, labels) in enumerate(loader):
+            for idx, (indices, images, labels) in enumerate(stream):
                 data_time.update(time.time() - end)
                 if opt.sup_train_type == "gl":
-                    base_x, base_y = next(base_iter)
-                    state, metrics, scores = gl_step(state, base_x, base_y,
-                                                     images, labels)
+                    if device_data:
+                        state, metrics, scores = gl_step(
+                            state, data_dev, *base_dev, indices, labels)
+                    else:
+                        base_x, base_y = next(base_iter)
+                        state, metrics, scores = gl_step(
+                            state, base_x, base_y, images, labels)
                     if (epoch % opt.gl_update_base_epochs == 0
                             and opt.gl_update_base_mode == "score"):
                         pending_scores.append((indices, scores))
+                elif device_data:
+                    state, metrics = mlp_step(state, data_dev, indices,
+                                              labels)
                 else:
                     state, metrics = mlp_step(state, images, labels)
                 pending.append((metrics, len(labels)))
@@ -358,7 +403,9 @@ def run_training(opt) -> dict:
                     sys.stdout.flush()
                     end = time.time()
             flush_metrics()
-        records["epoch_s"].append(time.time() - t_epoch)
+            # the step loop's time, ending in a device sync (the last
+            # flush's copy); a traced epoch writes its trace after this
+            records["epoch_s"].append(time.time() - t_epoch)
         # score updates only feed the per-epoch base refresh below: one copy
         if pending_scores:
             all_scores = torch.cat([s for _, s in pending_scores])
@@ -378,6 +425,9 @@ def run_training(opt) -> dict:
             base_imgs, base_labels, base_sel = ds.select_base(
                 opt.num_train, opt.gl_update_base_mode, rng_np,
                 return_indices=True)
+            if device_data:
+                base_dev = (torch.as_tensor(base_sel, device=dev),
+                            torch.as_tensor(base_labels, device=dev))
 
         if epoch % opt.plot_freq_ss == 0 or epoch == opt.epochs:
             records["test_acc"].append(evaluate())

@@ -9,7 +9,11 @@ the host with :func:`metrics_to_host` where a driver flushes them, which is
 also where the exploding-gradient warning is raised.
 
 Batches arrive as uint8 NHWC arrays (numpy or tensors), exactly as the JAX
-steps take them, and are normalized on the device.
+steps take them, and are normalized on the device.  The ``*_from_data``
+steps take a device-resident uint8 dataset instead, and gather and augment
+each step's rows on the device (``--device_data``).  The JAX package's
+``make_sharded_*`` steps belong to the multi-device path, which is not
+ported.
 
 The entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA they raise rather than move to the CPU on their own.
@@ -31,7 +35,8 @@ from .optim import make_optimizer
 __all__ = ["TrainState", "create_train_state", "params_finite",
            "resolve_device", "make_gl_train_step", "make_gl_eval_step",
            "make_mlp_train_step", "make_mlp_eval_step", "make_encode_step",
-           "metrics_to_host"]
+           "make_gl_train_step_from_data", "make_mlp_train_step_from_data",
+           "make_encode_step_from_data", "metrics_to_host"]
 
 
 @dataclass
@@ -119,6 +124,60 @@ def _zero_grads(model: nn.Module) -> None:
             p.grad.zero_()
 
 
+def _gl_update(state: TrainState, x: torch.Tensor, base_labels,
+               labels: torch.Tensor, num_classes: int, op_kw: dict,
+               score_type: str, dev: torch.device):
+    """The GL step's body on a normalized NCHW batch ``x`` (base rows
+    first): encode, the graph head with base labels, CE on the batch
+    labels, one optimizer update.  Returns ``(state, metrics, scores)``."""
+    model = state.model
+    model.train()
+    x = x.to(next(model.parameters()).dtype)
+    y = F.one_hot(_to_device(base_labels, dev).long(),
+                  num_classes).to(x.dtype)
+
+    stats: dict = {}
+    _, features = model(x)
+    pred = laplace_learning(features, y, stats=stats, **op_kw)
+    loss = custom_ce_loss(pred, labels)
+    _zero_grads(model)
+    loss.backward()
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+
+    pred = pred.detach()
+    acc = torch.mean((torch.argmax(pred, dim=1) == labels).float())
+    metrics = {"loss": loss.detach(), "acc": acc,
+               "params_finite": params_finite(model.parameters()),
+               "grad_norm": stats["grad_norm"],
+               "out_norm": stats["out_norm"]}
+    if "chol_info" in stats:
+        metrics["chol_info"] = stats["chol_info"]
+    else:
+        metrics["cg_iters"] = torch.tensor(
+            stats["cg_iters"] + stats["cg_iters_bwd"], device=dev)
+    return state, metrics, _scores(pred, labels, score_type)
+
+
+def _mlp_update(state: TrainState, x: torch.Tensor, labels: torch.Tensor):
+    """The MLP step's body on a normalized NCHW batch ``x``: the aux
+    classifier's CE and one optimizer update; returns
+    ``(state, metrics)``."""
+    model = state.model
+    model.train()
+    pred, _ = model(x.to(next(model.parameters()).dtype))
+    loss = custom_ce_loss(pred, labels)
+    _zero_grads(model)
+    loss.backward()
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    acc = torch.mean((torch.argmax(pred.detach(), dim=1) == labels).float())
+    return state, {"loss": loss.detach(), "acc": acc,
+                   "params_finite": params_finite(model.parameters())}
+
+
 def make_gl_train_step(num_classes: int, tau: float, epsilon="auto",
                        k: int = 25, solver: str = "cholesky",
                        score_type: str = "entropy", norm=None,
@@ -133,41 +192,16 @@ def make_gl_train_step(num_classes: int, tau: float, epsilon="auto",
     the Cholesky factorization succeeded) or, with ``solver='cg'``,
     ``cg_iters`` (forward plus adjoint CG iterations).
     ``norm=(mean, std)``: accept uint8 batches and normalize on the
-    device."""
+    device.  The batch is cast to the parameters' dtype."""
     dev = resolve_device(device)
+    op_kw = dict(tau=tau, epsilon=epsilon, k=k, solver=solver)
 
     def step(state: TrainState, base_images, base_labels, images, labels):
-        model = state.model
-        model.train()
         x = _device_normalize(torch.cat([_to_device(base_images, dev),
                                          _to_device(images, dev)]), norm)
-        labels = _to_device(labels, dev).long()
-        y = F.one_hot(_to_device(base_labels, dev).long(),
-                      num_classes).to(x.dtype)
-
-        stats: dict = {}
-        _, features = model(x)
-        pred = laplace_learning(features, y, tau=tau, epsilon=epsilon, k=k,
-                                solver=solver, stats=stats)
-        loss = custom_ce_loss(pred, labels)
-        _zero_grads(model)
-        loss.backward()
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-
-        pred = pred.detach()
-        acc = torch.mean((torch.argmax(pred, dim=1) == labels).float())
-        metrics = {"loss": loss.detach(), "acc": acc,
-                   "params_finite": params_finite(model.parameters()),
-                   "grad_norm": stats["grad_norm"],
-                   "out_norm": stats["out_norm"]}
-        if "chol_info" in stats:
-            metrics["chol_info"] = stats["chol_info"]
-        else:
-            metrics["cg_iters"] = torch.tensor(
-                stats["cg_iters"] + stats["cg_iters_bwd"], device=dev)
-        return state, metrics, _scores(pred, labels, score_type)
+        return _gl_update(state, x, base_labels,
+                          _to_device(labels, dev).long(), num_classes,
+                          op_kw, score_type, dev)
 
     return step
 
@@ -180,21 +214,66 @@ def make_mlp_train_step(norm=None, device="cuda") -> Callable:
     dev = resolve_device(device)
 
     def step(state: TrainState, images, labels):
-        model = state.model
-        model.train()
-        x = _device_normalize(_to_device(images, dev), norm)
-        labels = _to_device(labels, dev).long()
-        pred, _ = model(x)
-        loss = custom_ce_loss(pred, labels)
-        _zero_grads(model)
-        loss.backward()
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        acc = torch.mean((torch.argmax(pred.detach(), dim=1)
-                          == labels).float())
-        return state, {"loss": loss.detach(), "acc": acc,
-                       "params_finite": params_finite(model.parameters())}
+        return _mlp_update(state, _device_normalize(_to_device(images, dev),
+                                                    norm),
+                           _to_device(labels, dev).long())
+
+    return step
+
+
+def _gather_rows(data: torch.Tensor, rows: torch.Tensor, image_shape, aug,
+                 generator) -> torch.Tensor:
+    """Rows of a resident (N, H*W*C) uint8 dataset as an NHWC batch,
+    augmented on the device by ``aug`` (a ``DeviceTransform``; None or
+    eval mode leaves them as they are)."""
+    images = data.index_select(0, rows).reshape(-1, *image_shape)
+    if aug is not None and not aug.is_eval:
+        images = aug(images, generator)
+    return images
+
+
+def make_gl_train_step_from_data(num_classes: int, image_shape, tau: float,
+                                 epsilon="auto", k: int = 25,
+                                 solver: str = "cholesky",
+                                 score_type: str = "entropy", norm=None,
+                                 aug=None, generator=None,
+                                 device="cuda") -> Callable:
+    """GL step over a device-resident dataset: the host sends only index
+    and label vectors; the step gathers base + batch rows on the device
+    (``index_select``), re-augments them there with ``aug`` every step (the
+    base rows too, as the host path re-augments its base batch), normalizes
+    and runs the GL step's body.
+
+    ``step(state, data, base_idx, base_labels, idx, labels)`` returns what
+    ``make_gl_train_step``'s step does.  ``data``: the (N, H*W*C) uint8
+    training set on the device; ``image_shape``: (H, W, C).
+    ``generator``: the ``torch.Generator`` (on ``device``) the
+    augmentation draws from (the device's default generator when None)."""
+    dev = resolve_device(device)
+    op_kw = dict(tau=tau, epsilon=epsilon, k=k, solver=solver)
+
+    def step(state: TrainState, data, base_idx, base_labels, idx, labels):
+        rows = torch.cat([_to_device(base_idx, dev), _to_device(idx, dev)])
+        images = _gather_rows(data, rows, image_shape, aug, generator)
+        return _gl_update(state, _device_normalize(images, norm),
+                          base_labels, _to_device(labels, dev).long(),
+                          num_classes, op_kw, score_type, dev)
+
+    return step
+
+
+def make_mlp_train_step_from_data(image_shape, norm=None, aug=None,
+                                  generator=None,
+                                  device="cuda") -> Callable:
+    """MLP step over a device-resident dataset (see
+    make_gl_train_step_from_data): ``step(state, data, idx, labels)``."""
+    dev = resolve_device(device)
+
+    def step(state: TrainState, data, idx, labels):
+        images = _gather_rows(data, _to_device(idx, dev), image_shape, aug,
+                              generator)
+        return _mlp_update(state, _device_normalize(images, norm),
+                           _to_device(labels, dev).long())
 
     return step
 
@@ -255,6 +334,22 @@ def make_encode_step(norm=None, device="cuda") -> Callable:
         x = _device_normalize(_to_device(images, dev), norm)
         _, features = model(x.to(next(model.parameters()).dtype))
         return features
+
+    return step
+
+
+def make_encode_step_from_data(image_shape, batch: int, norm=None,
+                               device="cuda") -> Callable:
+    """Feature extraction over a device-resident (N, H*W*C) uint8 dataset:
+    ``step(state, data, start)`` encodes the ``batch`` rows from ``start``
+    on, with no image crossing from the host (the ``--device_data``
+    eval).  Otherwise as make_encode_step."""
+    dev = resolve_device(device)
+    encode = make_encode_step(norm=norm, device=dev)
+
+    def step(state: TrainState, data, start: int):
+        rows = data[start:start + batch].reshape(batch, *image_shape)
+        return encode(state, rows)
 
     return step
 

@@ -464,3 +464,131 @@ def test_robust_gl_pgd_gradients_k1_against_plain(cuda_device, monkeypatch):
         assert seeded_apart >= apart // 2
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+# ---------------------------------------------------------------------------
+# the device-resident data path and the compare driver's step
+
+
+def _aug_images(seed):
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 256, (32, 32, 3), np.uint8)
+    rgb[..., 1] = 40 + (rgb[..., 1] % 150)      # a limited-range channel
+    return [rgb, rng.integers(0, 256, (28, 28, 1), np.uint8)]
+
+
+@pytest.mark.cuda
+def test_device_aug_ops_on_card_equal_cpu(cuda_device):
+    """Every RandAugment op at four magnitudes and both signs, the prefix
+    warp and the cutout: the card's uint8 output equals the CPU's (float64
+    coordinates on both)."""
+    from graphlearninglayer_tpu_torch.data import device_aug as da
+
+    for img in _aug_images(1):
+        on_card = torch.from_numpy(img).to(cuda_device)
+        for op in range(14):
+            lo, hi = float(da._OP_LO[op]), float(da._OP_HI[op])
+            for frac in (0.0, 0.33, 0.77, 1.0):
+                for sign in (False, True):
+                    v = lo + frac * (hi - lo)
+                    got = da.device_apply_op(on_card, op, v, sign)
+                    assert got.is_cuda
+                    want = da.device_apply_op(img, op, v, sign)
+                    assert torch.equal(got.cpu(), want), (op, v, sign)
+        for mode in ("weak", "strong"):
+            name = "cifar10" if img.shape[-1] == 3 else "mnist"
+            tf = da.DeviceTransform(name, mode)
+            batch = torch.from_numpy(np.stack([img] * 16)).to(cuda_device)
+            params = tf.draw(16, torch.Generator(device=cuda_device).manual_seed(0),
+                             cuda_device)
+            got = tf.apply(batch, params)
+            cpu = {k: v.cpu() for k, v in params.items()
+                   if isinstance(v, torch.Tensor)}
+            cpu["rounds"] = [tuple(t.cpu() for t in r)
+                             for r in params["rounds"]]
+            cpu["cutout"] = tuple(t.cpu() for t in params["cutout"])
+            assert torch.equal(got.cpu(), tf.apply(batch.cpu(), cpu))
+            assert len({o.cpu().numpy().tobytes() for o in got}) > 1
+
+
+def _tiny_state(device, seed=0, num_classes=4):
+    model = BuildNet("resnet18", num_classes=num_classes,
+                     generator=torch.Generator().manual_seed(seed))
+    return create_train_state(model, make_lr_schedule(0.01, 1, 1),
+                              device=device)
+
+
+@pytest.mark.cuda
+def test_from_data_gl_step_on_card_launches_k1_once(cuda_device):
+    """The resident-data GL step gathers and augments its rows on the card
+    and launches K1 once; only index and label vectors come from the
+    host."""
+    from graphlearninglayer_tpu_torch.data import DeviceTransform
+    from graphlearninglayer_tpu_torch.train import (
+        make_gl_train_step_from_data)
+
+    rng = np.random.default_rng(2)
+    data = torch.from_numpy(rng.integers(0, 256, (64, 16 * 16 * 3),
+                                         dtype=np.uint8)).to(cuda_device)
+    labels = rng.integers(0, 4, 64)
+    step = make_gl_train_step_from_data(
+        4, (16, 16, 3), tau=0.07, k=5, norm=CHANNEL_STATS["cifar10"],
+        aug=DeviceTransform("cifar10", "strong"),
+        generator=torch.Generator(device=cuda_device).manual_seed(0))
+    state = _tiny_state(cuda_device)
+    base, idx = np.arange(12), np.arange(12, 48)
+    before = k1.fused_affinity_sym.launches
+    state, metrics, scores = step(state, data, base, labels[base], idx,
+                                  labels[idx])
+    assert k1.fused_affinity_sym.launches == before + 1
+    host = metrics_to_host(metrics)
+    assert np.isfinite(host["loss"]) and host["chol_info"] == 0
+    assert scores.is_cuda and scores.shape == (36,)
+
+
+@pytest.mark.cuda
+def test_resident_encode_on_card_equals_streaming(cuda_device):
+    """On the card the resident encode (tail re-sliced) gives the
+    streaming encode's features bit for bit (TF32 off)."""
+    from graphlearninglayer_tpu_torch.evalx import (encode_dataset,
+                                                    encode_dataset_resident)
+    from graphlearninglayer_tpu_torch.train import make_encode_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        images = np.random.default_rng(3).integers(
+            0, 256, (300, 32, 32, 3), dtype=np.uint8)
+        state = _tiny_state(cuda_device)
+        norm = CHANNEL_STATS["cifar10"]
+        stream = encode_dataset(make_encode_step(norm=norm), state, images,
+                                batch_size=128)
+        data = torch.from_numpy(images.reshape(300, -1)).to(cuda_device)
+        res = encode_dataset_resident(state, data, 300, (32, 32, 3), norm,
+                                      batch_size=128)
+        assert res.is_cuda and res.shape == (300, 128)
+        assert torch.equal(res, stream)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+@pytest.mark.cuda
+def test_compare_step_on_card_launches_k1_once(cuda_device):
+    """The compare driver's step evaluates the GL loss on the card through
+    K1 (once) before the MLP head's update."""
+    from graphlearninglayer_tpu_torch.data import normalize_batch
+    from graphlearninglayer_tpu_torch.train.compare_to_mlp import \
+        make_compare_step
+
+    rng = np.random.default_rng(4)
+    images = rng.integers(0, 256, (48, 16, 16, 3)).astype(np.uint8)
+    labels = rng.integers(0, 4, 48)
+    norm = CHANNEL_STATS["cifar10"]
+    step = make_compare_step(4, normalize_batch(images[:12], *norm),
+                             labels[:12], tau=0.07, k=5, norm=norm)
+    state = _tiny_state(cuda_device)
+    before = k1.fused_affinity_sym.launches
+    state, mlp_loss, gl_loss = step(state, images[12:], labels[12:])
+    assert k1.fused_affinity_sym.launches == before + 1
+    assert mlp_loss.is_cuda and gl_loss.is_cuda
+    assert np.isfinite(mlp_loss.item()) and np.isfinite(gl_loss.item())
+    assert state.step == 1

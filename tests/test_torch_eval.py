@@ -113,12 +113,27 @@ def test_gl_transductive_caps_k_and_guards(setup, monkeypatch):
             dim=1))
     _, seen, _ = _run(setup, monkeypatch)          # knn_num=50 > 32 nodes
     assert seen["knn_num"] == 32
+    # the resident eval (ported): the same stand-in over the splits on the
+    # device, base rows gathered from the train features
+    monkeypatch.setattr(
+        harness, "make_encode_step_from_data",
+        lambda image_shape, batch, norm, device: lambda state, data, start:
+        harness.make_encode_step(norm, device)(
+            state, data[start:start + batch]))
     state, parts = setup
+    flat = lambda a: torch.from_numpy(a.reshape(len(a), -1))
+    first = seen["x"]
+    _, seen, _ = _run(setup, monkeypatch, resident=(
+        flat(np.concatenate([parts["base"][0], parts["train"][0]])),
+        flat(parts["test"][0]), np.arange(8), (32, 32, 3)))
+    assert seen["knn_num"] == 32 + 8   # the base rows are train rows here
+    np.testing.assert_array_equal(seen["x"][:8].numpy(),
+                                  first[:8].numpy())
+    np.testing.assert_array_equal(seen["x"][-8:].numpy(),
+                                  first[-8:].numpy())
     args = (state, *parts["base"], *parts["test"], None, NUM_CLASSES)
     with pytest.raises(NotImplementedError, match="slice 6"):
         gl_transductive(*args, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        gl_transductive(*args, resident=object(), device="cpu")
 
 
 def test_encode_dataset_pads_and_trims_the_tail(setup):

@@ -1,7 +1,8 @@
 """The port's FullySup driver (``train/fullysup.py``) on the CPU.
 
 The scenarios of tests/test_fullysup_driver.py that do not use
-``--device_data``, run on the port with a tiny encoder patched into the
+``--device_data`` (tests/test_torch_device_data.py has those), run on the
+port with a tiny encoder patched into the
 port's ``model_dict`` (synthetic 28x28x1 data, 96 train / 32 test images,
 batch 32, 10 base images, k=6).  The JAX driver is not run here: the
 initial base pick is held against the JAX package's
@@ -240,6 +241,10 @@ def test_main_tees_stdout_and_unported_options_raise(tiny_opt, capsys):
     with open(os.path.join(opt.save_folder, logs[0])) as f:
         assert "epoch 1, total time" in f.read()
     assert len(records["loss"]) == 1
-    for extra in (["--device_data"], ["--mesh", "2"]):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            fullysup.run_training(parse_option(tiny_opt + extra))
+    # --device_data is ported: it runs, with the augmentation on the device
+    records = fullysup.main(tiny_opt + ["--epochs", "1", "--device_data"])
+    assert records["loader_backend"] == "device"
+    assert len(records["loss"]) == 1 and np.isfinite(records["loss"][0])
+    # the multi-device path is not
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        fullysup.run_training(parse_option(tiny_opt + ["--mesh", "2"]))

@@ -3,6 +3,7 @@ package, and its entry points run on the card unless told otherwise."""
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -47,9 +48,12 @@ def test_port_imports_no_jax():
                 "models/cnn", "models/preact_resnet", "models/wrn",
                 "models/resnet_mnist", "utils/jax_params", "attack/fgsm",
                 "attack/pgd", "attack/cw", "attack/driver",
-                "train/adversarial_driver"):
+                "train/adversarial_driver",
+                # the remaining drivers and the device-resident data
+                "data/device_aug", "data/pseudo_label",
+                "train/compare_to_mlp", "train/supcon"):
         assert f"graphlearninglayer_tpu_torch/{mod}.py" in names, mod
-    assert len(files) >= 30
+    assert len(files) >= 34
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -114,3 +118,41 @@ def test_adversarial_entry_points_raise_without_cuda(no_cuda, tmp_path,
             make()
         assert callable(make(device="cpu"))
     assert not (tmp_path / "models").exists()
+
+
+def test_remaining_drivers_raise_without_cuda(no_cuda, tmp_path,
+                                             monkeypatch):
+    """The compare, SupCon and visualize CLIs, the from-data steps and the
+    resident encode run on the card unless given the CPU, and raise
+    without CUDA before any work."""
+    import importlib
+
+    from graphlearninglayer_tpu_torch.train import (
+        compare_to_mlp, make_encode_step_from_data,
+        make_gl_train_step_from_data, make_mlp_train_step_from_data,
+        supcon)
+
+    viz = importlib.import_module(
+        "graphlearninglayer_tpu_torch.evalx.visualize")
+    monkeypatch.chdir(tmp_path)
+    argv = ["--dataset", "synthetic"]
+    for main in (compare_to_mlp.main, supcon.main):
+        with pytest.raises(RuntimeError, match="--dev cpu"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="--dev cpu"):
+        fullysup.main(["--sup_train_type", "gl", "--device_data"] + argv)
+    with pytest.raises(RuntimeError, match="--dev cpu"):
+        viz.main([str(tmp_path / "ckpt")] + argv)
+    makes = [lambda **kw: make_gl_train_step_from_data(4, (8, 8, 3), 0.07,
+                                                       **kw),
+             lambda **kw: make_mlp_train_step_from_data((8, 8, 3), **kw),
+             lambda **kw: make_encode_step_from_data((8, 8, 3), 4, **kw),
+             lambda **kw: supcon.make_supcon_step(0.07, **kw),
+             lambda **kw: compare_to_mlp.make_compare_step(
+                 4, np.zeros((1, 8, 8, 3), np.float32), [0], 0.07, **kw)]
+    for make in makes:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        assert callable(make(device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        harness.encode_dataset_resident(None, None, 4, (8, 8, 3), None)
