@@ -8,10 +8,10 @@ through.  Two deliberate differences from the JAX package:
 
   * ``--dev`` is the torch device: ``cuda`` (the default) or ``cpu``.  It
     selects where the driver runs and touches no global state.
-  * ``--mesh`` accepts ``auto``, ``off`` or a positive device count; the
-    driver runs one device (``auto`` with one visible card runs as
-    ``off``), and a count above 1 raises there, as the multi-device paths
-    are not ported yet.
+  * ``--mesh`` accepts ``auto``, ``off`` or a positive device count.  A
+    count above 1 makes the driver spawn that many ranks (one a card, or
+    CPU ranks with ``--dev cpu``); ``auto`` is the launcher's world size,
+    else the visible card count (``train/fullysup.py``).
 """
 from __future__ import annotations
 
@@ -65,7 +65,7 @@ def parse_option(argv=None):
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 encoder compute (autocast)")
     # keep the uint8 training set device-resident and augment inside the
-    # step (not ported yet: the driver raises)
+    # step (data/device_aug.py)
     parser.add_argument("--device_data", action="store_true",
                         help="device-resident dataset + on-device "
                              "augmentation (per-step transfers are index/"
@@ -174,7 +174,7 @@ def parse_option(argv=None):
     parser.add_argument("--gl_solver", type=str, default="cholesky",
                         choices=["cholesky", "cg"])
 
-    # multi-device execution (one device only so far)
+    # multi-device execution (parallel/, train/fullysup.py)
     parser.add_argument("--mesh", type=_mesh_arg, default="auto",
                         help="device mesh for the train step and large-n "
                              "eval: 'auto' (all visible devices when >1), "

@@ -2,15 +2,16 @@
 over the whole dataset.
 
 Twin of ``graphlearninglayer_tpu/evalx/harness.py`` (``encode_dataset``,
-``encode_dataset_resident``, ``test_network`` and the single-device
-branches of ``test_gl_transductive``).  The transductive eval encodes base
-+ train + test images on the device, then builds one k=50 graph over all of
-them and runs one CG solve (``ops.transductive_laplace``); accuracy on the
-test slice.  With ``resident=`` (the ``--device_data`` eval) the train and
-test sets already lie on the device and no image crosses from the host.
-
-Not ported yet: the sharded eval (``mesh=`` raises
-``NotImplementedError``).
+``encode_dataset_resident``, ``test_network`` and ``test_gl_transductive``).
+The transductive eval encodes base + train + test images on the device,
+then builds one k=50 graph over all of them and runs one CG solve
+(``ops.transductive_laplace``); accuracy on the test slice.  With
+``resident=`` (the ``--device_data`` eval) the train and test sets already
+lie on the device and no image crosses from the host.  With ``mesh=`` every
+rank encodes the whole set and a graph of at least ``shard_min_n`` nodes
+goes through the edge-partitioned solve over the ranks
+(``parallel/edge_shard.py``: each rank's KNN rows, then the halo-exchange
+CG).
 """
 from __future__ import annotations
 
@@ -155,12 +156,13 @@ def test_gl_transductive(state: TrainState, base_images, base_labels,
     (the base set is rows of the train split).  Needs ``norm``; the graph
     and the solve are those of the streaming eval.
 
-    ``mesh`` (with ``shard_min_n``) belongs to the sharded eval, which is
-    not ported yet: it raises."""
+    ``mesh``: a mesh (``parallel/mesh.py``) with a 'graph' axis over more
+    than one rank routes a graph of at least ``shard_min_n`` nodes through
+    the edge-partitioned solve on the ranks (every rank then encodes the
+    whole set, on the mesh's device, and gets the same accuracy); smaller
+    graphs stay on each rank's single-device solve."""
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the edge-sharded transductive eval is not ported yet "
-            "(ROADMAP.md, section 1, slice 6, item 22)")
+        device = mesh.device
     dev = resolve_device(device)
     t0 = time.perf_counter()
     if resident is not None:
@@ -194,7 +196,19 @@ def test_gl_transductive(state: TrainState, base_images, base_labels,
     # k cannot exceed the node count (self included)
     knn_num = min(knn_num, n_nodes)
 
+    sharded = (mesh is not None and mesh.shape.get("graph", 1) > 1
+               and n_nodes >= shard_min_n)
+
     def solve():
+        if sharded:
+            from ..parallel.edge_shard import \
+                edge_sharded_transductive_laplace
+
+            print(f"  [transductive eval: edge-sharded over "
+                  f"{mesh.shape['graph']} devices]")
+            return edge_sharded_transductive_laplace(
+                mesh, all_f, y, knn_num=knn_num, epsilon=epsilon, tau=tau,
+                return_info=True, cache=cache)
         return transductive_laplace(all_f, y, knn_num=knn_num,
                                     epsilon=epsilon, tau=tau,
                                     return_info=True, cache=cache)
@@ -232,5 +246,6 @@ def test_gl_transductive(state: TrainState, base_images, base_labels,
           f"residual {cg_err:.2e}]")
     if stats is not None:
         stats.update(n_nodes=n_nodes, encode_s=t1 - t0, solve_s=t2 - t1,
-                     cg_iters=cg_iters, cg_err=cg_err)
+                     cg_iters=cg_iters, cg_err=cg_err,
+                     route="edge_sharded" if sharded else "single")
     return acc

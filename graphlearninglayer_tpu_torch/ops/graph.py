@@ -42,6 +42,7 @@ __all__ = [
     "build_graph",
     "graph_from_knn",
     "edge_dist2",
+    "pad_far_rows",
     "edge_weights",
     "sym_rowsum",
     "sym_spmm",
@@ -106,6 +107,19 @@ def build_graph(x: torch.Tensor, k: int, epsilon="auto", *,
         nbr, _ = knn(x, k)
         dist2 = edge_dist2(x, nbr)
     return graph_from_knn(nbr, dist2, epsilon, dtype=x.dtype)
+
+
+def pad_far_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``x`` (n, d) with ``pad`` rows appended far from every row and from
+    each other (1e3 times the largest |entry| apart, and more): their
+    affinities underflow to zero and none enters a real row's KNN list.
+    The padding of the sharded evals and of the banded KNN."""
+    if not pad:
+        return x
+    far = x.abs().max() * 1e3 + 1e3
+    fill = far * (1.0 + torch.arange(pad, dtype=x.dtype,
+                                     device=x.device)[:, None])
+    return torch.cat([x, fill.expand(pad, x.shape[1])])
 
 
 def edge_dist2(x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:

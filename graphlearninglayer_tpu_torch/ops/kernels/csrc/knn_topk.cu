@@ -8,7 +8,10 @@
 // in ascending order, with self pinned first (d2[i,i] := -1 during
 // selection) and ties kept at the lower index, as nbr (n, k) int64 and
 // dist2 (n, k) f32 clamped at 0.  No distance panel is written to device
-// memory.
+// memory.  A row range [r0, r1) returns the lists of those query rows
+// only, (r1 - r0, k), against all n rows (a rank's share of a sharded
+// build); each row's list is the full call's bit for bit, because a row's
+// distances and its selection depend on nothing but its own row.
 //
 // Bound on an H100 SXM at the transductive eval's shape (n = 60,250,
 // d = 128, k = 50):
@@ -276,12 +279,14 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* xt,
 }
 
 // One block scans every column for kWarps * R rows from row_base +
-// blockIdx.x * kWarps * R, R rows a warp.
+// blockIdx.x * kWarps * R, R rows a warp, and writes the rows of
+// [row_lo, row_hi) among them to row gi - row_lo of nbr and dist2.
 template <int R>
 __global__ void __launch_bounds__(kThreads, 1)
 knn_scan_kernel(const float* __restrict__ xt, const float* __restrict__ sq,
                 int n, int n_pad, int d_pad, int k, int row_base,
-                int64_t* __restrict__ nbr, float* __restrict__ dist2) {
+                int row_lo, int row_hi, int64_t* __restrict__ nbr,
+                float* __restrict__ dist2) {
   extern __shared__ __align__(16) float smem[];
   const int d_res = resident_features(d_pad);
   const int sfl = stage_floats(d_pad);
@@ -518,7 +523,8 @@ knn_scan_kernel(const float* __restrict__ xt, const float* __restrict__ sq,
                     thr + lr, pad);
     }
     const int gi = row0 + R * warp + i;
-    if (gi >= n) continue;
+    if (gi < row_lo || gi >= row_hi) continue;
+    const size_t out = (size_t)(gi - row_lo) * k;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int e = lane + 32 * h;
@@ -526,8 +532,8 @@ knn_scan_kernel(const float* __restrict__ xt, const float* __restrict__ sq,
       const unsigned long long key = list[lr * kList + e];
       const float v = key_d2(key);
       const int vi = key_index(key);
-      nbr[(size_t)gi * k + e] = vi;
-      dist2[(size_t)gi * k + e] = fmaxf(v, 0.f);
+      nbr[out + e] = vi;
+      dist2[out + e] = fmaxf(v, 0.f);
     }
   }
 }
@@ -552,15 +558,16 @@ Layout layout(int n, int d) {
 
 template <int R>
 cudaError_t launch_scan_r(const float* xt, const float* sq, const Layout& l,
-                          int n, int k, int row_base, int blocks,
-                          int64_t* nbr, float* dist2, cudaStream_t s) {
+                          int n, int k, int row_base, int row_lo, int row_hi,
+                          int blocks, int64_t* nbr, float* dist2,
+                          cudaStream_t s) {
   const size_t smem = scan_smem_bytes(l.d_pad);
   cudaError_t err = cudaFuncSetAttribute(
       knn_scan_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   knn_scan_kernel<R><<<blocks, kThreads, smem, s>>>(
-      xt, sq, n, l.n_pad, l.d_pad, k, row_base, nbr, dist2);
+      xt, sq, n, l.n_pad, l.d_pad, k, row_base, row_lo, row_hi, nbr, dist2);
   return cudaGetLastError();
 }
 
@@ -569,20 +576,25 @@ cudaError_t launch_scan_r(const float* xt, const float* sq, const Layout& l,
 template <int R>
 cudaError_t launch_scan(int r, const float* xt, const float* sq,
                         const Layout& l, int n, int k, int row_base,
-                        int blocks, int64_t* nbr, float* dist2,
-                        cudaStream_t s) {
+                        int row_lo, int row_hi, int blocks, int64_t* nbr,
+                        float* dist2, cudaStream_t s) {
   if (r == R) {
-    return launch_scan_r<R>(xt, sq, l, n, k, row_base, blocks, nbr, dist2, s);
+    return launch_scan_r<R>(xt, sq, l, n, k, row_base, row_lo, row_hi,
+                            blocks, nbr, dist2, s);
   }
   if constexpr (R > 1) {
-    return launch_scan<R - 1>(r, xt, sq, l, n, k, row_base, blocks, nbr,
-                              dist2, s);
+    return launch_scan<R - 1>(r, xt, sq, l, n, k, row_base, row_lo, row_hi,
+                              blocks, nbr, dist2, s);
   }
   return cudaErrorInvalidValue;
 }
 
 bool valid(int n, int d, int k) {
   return n >= 1 && d >= 1 && k >= 1 && k <= kList && k <= n;
+}
+
+bool valid_rows(int n, int r0, int r1) {
+  return 0 <= r0 && r0 < r1 && r1 <= n;
 }
 
 }  // namespace
@@ -593,14 +605,18 @@ extern "C" size_t gll_knn_topk_workspace(int n, int d, int k) {
   return valid(n, d, k) ? layout(n, d).bytes : 0;
 }
 
-// Launches K2 on ``stream``.  Device pointers: x (n, d) f32 contiguous,
-// work (gll_knn_topk_workspace bytes, 256-byte aligned), nbr (n, k) int64
-// and dist2 (n, k) f32 outputs.  Requires 1 <= k <= min(64, n).  Returns
-// the CUDA error code of the launches (0 on success).
+// Launches K2 on ``stream`` for the query rows [r0, r1) (0 and n for all
+// of them).  Device pointers: x (n, d) f32 contiguous, work
+// (gll_knn_topk_workspace bytes, 256-byte aligned), nbr (r1 - r0, k) int64
+// and dist2 (r1 - r0, k) f32 outputs.  Requires 1 <= k <= min(64, n) and
+// 0 <= r0 < r1 <= n.  Returns the CUDA error code of the launches (0 on
+// success).
 extern "C" int gll_knn_topk_f32(const float* x, void* work, int64_t* nbr,
-                                float* dist2, int n, int d, int k,
-                                void* stream) {
-  if (!valid(n, d, k)) return static_cast<int>(cudaErrorInvalidValue);
+                                float* dist2, int n, int d, int k, int r0,
+                                int r1, void* stream) {
+  if (!valid(n, d, k) || !valid_rows(n, r0, r1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Layout l = layout(n, d);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   char* base = static_cast<char*>(work);
@@ -614,24 +630,30 @@ extern "C" int gll_knn_topk_f32(const float* x, void* work, int64_t* nbr,
 
   // Whole waves of 128-row panels, one block an SM; the rows left over go
   // to one wave of smaller blocks, R = 1..8 rows a warp, so that the last
-  // wave spreads over every SM.
+  // wave spreads over every SM.  The panels start at r0 rounded down to a
+  // multiple of 4, where the 16-byte panel copies stay aligned (rows below
+  // r0 are scanned and not written), and stay inside the padded rows.
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int full = l.n_pad / kBM / sms * sms;
+  const int first = r0 & ~3;
+  const int span = (r1 - first + kBM - 1) / kBM * kBM;
+  const int full = (span < l.n_pad - first ? span : l.n_pad - first) / kBM /
+                   sms * sms;
   if (full > 0) {
-    err = launch_scan<8>(8, xt, sq, l, n, k, 0, full, nbr, dist2, s);
+    err = launch_scan<8>(8, xt, sq, l, n, k, first, r0, r1, full, nbr, dist2,
+                         s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int rest = n - full * kBM;
+  const int rest = r1 - first - full * kBM;
   if (rest > 0) {
     const int per_block = (rest + sms - 1) / sms;
     const int r = (per_block + kWarps - 1) / kWarps;
     const int rows = kWarps * r;
-    err = launch_scan<8>(r, xt, sq, l, n, k, full * kBM,
+    err = launch_scan<8>(r, xt, sq, l, n, k, first + full * kBM, r0, r1,
                          (rest + rows - 1) / rows, nbr, dist2, s);
   }
   return static_cast<int>(err);

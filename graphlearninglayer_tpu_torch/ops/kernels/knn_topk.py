@@ -6,7 +6,11 @@
     d2_ij = max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0),
 
 self first (pinned by d2_ii := -1 during selection), ``nbr`` int64 and
-``dist2`` clamped at 0.  It replaces the Pallas TPU kernel
+``dist2`` clamped at 0.  ``rows=(r0, r1)`` returns the lists of the query
+rows ``x[r0:r1]`` only, (r1 - r0, k), against all n rows, with self at its
+global index: a rank's share of the sharded eval's build
+(``parallel/edge_shard.py::sharded_knn``); each row's list equals the full
+call's bit for bit.  It replaces the Pallas TPU kernel
 ``graphlearninglayer_tpu/ops/kernels/knn_topk.py::fused_knn`` and computes
 what ``ops/knn.py::knn_tiled`` computes.
 
@@ -51,23 +55,32 @@ __all__ = ["fused_knn", "fused_knn_plain", "MAX_K"]
 MAX_K = 64   # the running list's width (the Pallas kernel's default rt)
 
 
-def fused_knn_plain(x: torch.Tensor, k: int, block: int = 1024
+def _rows(x: torch.Tensor, rows) -> tuple[int, int]:
+    n = x.shape[0]
+    r0, r1 = (0, n) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= r0 < r1 <= n:
+        raise ValueError(f"rows {rows} must satisfy 0 <= r0 < r1 <= {n}")
+    return r0, r1
+
+
+def fused_knn_plain(x: torch.Tensor, k: int, block: int = 1024, rows=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2 in plain PyTorch (the JAX package's ``knn_tiled`` route): per
     ``block`` query rows, one distance panel against all of ``x`` and one
-    ``torch.topk``.  Peak panel memory is ``block`` x n.  The CPU path, and
-    the yardstick the kernel is held against on the card."""
-    n = x.shape[0]
+    ``torch.topk``.  Peak panel memory is ``block`` x n.  ``rows=(r0, r1)``:
+    the query rows ``x[r0:r1]`` only.  The CPU path, and the yardstick the
+    kernel is held against on the card."""
+    r0, r1 = _rows(x, rows)
     xx_all = torch.sum(x * x, dim=-1)
     nbrs, dists = [], []
     with full_f32():
-        for start in range(0, n, block):
-            xb = x[start:start + block]
-            rows = torch.arange(xb.shape[0], device=x.device)
+        for start in range(r0, r1, block):
+            xb = x[start:min(start + block, r1)]
+            local = torch.arange(xb.shape[0], device=x.device)
             qq = torch.sum(xb * xb, dim=-1)
             d2 = (qq[:, None] + xx_all[None, :]
                   - 2.0 * (xb @ x.T)).clamp_min(0.0)
-            d2[rows, rows + start] = -1.0
+            d2[local, local + start] = -1.0
             dist, idx = torch.topk(d2, k, dim=1, largest=False, sorted=True)
             nbrs.append(idx)
             dists.append(dist.clamp_min(0.0))
@@ -96,13 +109,14 @@ def _kernel():
         lib.gll_knn_topk_workspace.argtypes = [ctypes.c_int] * 3
         lib.gll_knn_topk_workspace.restype = ctypes.c_size_t
         lib.gll_knn_topk_f32.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.gll_knn_topk_f32.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _launch(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch(x: torch.Tensor, k: int, r0: int, r1: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     if x.dtype != torch.float32:
         raise TypeError(f"the K2 kernel takes float32; x is {x.dtype}")
     if not x.is_contiguous():
@@ -113,31 +127,33 @@ def _launch(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     if nbytes == 0:
         raise RuntimeError(f"the K2 kernel refuses n={n}, d={d}, k={k}")
     work = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
-    nbr = torch.empty((n, k), dtype=torch.int64, device=x.device)
-    dist2 = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    nbr = torch.empty((r1 - r0, k), dtype=torch.int64, device=x.device)
+    dist2 = torch.empty((r1 - r0, k), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gll_knn_topk_f32(x.data_ptr(), work.data_ptr(),
                                    nbr.data_ptr(), dist2.data_ptr(), n, d, k,
-                                   stream)
+                                   r0, r1, stream)
     if err != 0:
         raise RuntimeError(f"K2 KNN kernel launch failed with CUDA error "
-                           f"{err} (n={n}, d={d}, k={k})")
+                           f"{err} (n={n}, d={d}, k={k}, rows {r0}:{r1})")
     fused_knn.launches += 1
     return nbr, dist2
 
 
-def fused_knn(x: torch.Tensor, k: int, block: int = 1024
+def fused_knn(x: torch.Tensor, k: int, block: int = 1024, rows=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact KNN ``(nbr, dist2)`` of the rows of ``x``; see the module
-    docstring.  CUDA tensors go to the kernel, CPU tensors to the plain
-    version, which alone uses ``block``."""
+    """Exact KNN ``(nbr, dist2)`` of the rows of ``x``, or of the query
+    rows ``rows=(r0, r1)`` against all of them; see the module docstring.
+    CUDA tensors go to the kernel, CPU tensors to the plain version, which
+    alone uses ``block``."""
     _check(x, k)
+    r0, r1 = _rows(x, rows)
     if x.device.type == "cpu":
-        return fused_knn_plain(x, k, block)
+        return fused_knn_plain(x, k, block, (r0, r1))
     if x.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA or CPU tensors, got {x.device}")
-    return _launch(x, k)
+    return _launch(x, k, r0, r1)
 
 
 fused_knn.launches = 0

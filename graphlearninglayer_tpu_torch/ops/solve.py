@@ -48,7 +48,9 @@ def cholesky_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def stable_conjgrad(matvec: Callable[[torch.Tensor], torch.Tensor],
                     b: torch.Tensor, x0: torch.Tensor | None = None,
                     max_iter: int = 100_000, tol: float = 1e-10,
-                    return_info: bool = False):
+                    return_info: bool = False,
+                    colsum: Callable[[torch.Tensor], torch.Tensor]
+                    | None = None):
     """Column-masked multi-RHS conjugate gradient (the reference's
     ``stable_conjgrad`` semantics):
 
@@ -61,8 +63,14 @@ def stable_conjgrad(matvec: Callable[[torch.Tensor], torch.Tensor],
     ``b`` is (m, l).  ``tol`` is taken in ``b``'s dtype, as the JAX package
     does.  The loop checks the residual on the host once per iteration.
     ``return_info=True`` returns ``(x, iterations, final residual)``, the
-    residual as a 0-d tensor.
+    residual as a 0-d tensor.  ``colsum``: the (l,) column sums of an
+    (m, l) tensor (``torch.sum(v, dim=0)`` by default); a row-sharded
+    solve passes one that all-reduces them, so that every rank sees the
+    same alpha, beta and residual and stops at the same iteration
+    (``parallel/``).
     """
+    if colsum is None:
+        colsum = lambda v: torch.sum(v, dim=0)
     if x0 is None:
         x0 = torch.zeros_like(b)
     tol_t = torch.tensor(tol, dtype=b.dtype, device=b.device)
@@ -71,17 +79,17 @@ def stable_conjgrad(matvec: Callable[[torch.Tensor], torch.Tensor],
     x = x0
     r = b - matvec(x0)
     p = r
-    rs = torch.sum(r * r, dim=0)
+    rs = colsum(r * r)
     err = torch.sqrt(torch.max(rs))
     iters = 0
     while iters < max_iter and bool(err > tol_t):
         ap = matvec(p)
-        pap = torch.sum(p * ap, dim=0)
+        pap = colsum(p * ap)
         live = rs > tol2
         alpha = torch.where(live, rs / torch.where(live, pap, 1.0), 0.0)
         x = x + alpha * p
         r = r - alpha * ap
-        rsnew = torch.sum(r * r, dim=0)
+        rsnew = colsum(r * r)
         err = torch.sqrt(torch.max(rsnew))
         livenew = rsnew > tol2
         beta = torch.where(livenew, rsnew / torch.where(livenew, rs, 1.0),

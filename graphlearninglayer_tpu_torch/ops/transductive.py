@@ -20,6 +20,12 @@ Four matvec modes, the same as the JAX package's:
 
 The CG loop checks its residual on the host once per iteration.  Set
 ``GLL_EVAL_DEBUG`` to anything but "0" for the planning printouts.
+
+``GLL_BANDED_KNN=1`` (opt-in, as in the JAX package) builds the graph of a
+cached eval of at least ``GLL_BANDED_MIN_N`` nodes (default 16,384) with the
+certificate-banded KNN (ops/knn_banded.py), steered by the cache's last
+permutation; when it cannot certify enough rows the eval falls back to
+``knn_tiled`` and skips the banded pass for the next five evals.
 """
 from __future__ import annotations
 
@@ -32,8 +38,9 @@ import torch.nn.functional as F
 from .bsr import (bsr_plan, bsr_plan_from_perm, bsr_spmm, bsr_stats,
                   build_bsr_mat)
 from .graph import (build_graph, build_sym_ell, edge_weights, ell_cap,
-                    ell_rowsum, ell_spmm, max_in_degree, overflow_count,
-                    sym_rowsum, sym_spmm)
+                    ell_rowsum, ell_spmm, graph_from_knn, max_in_degree,
+                    overflow_count, sym_rowsum, sym_spmm)
+from .knn_banded import banded_knn
 from .solve import stable_conjgrad
 
 __all__ = ["one_hot_encode", "transductive_laplace", "EvalGraphCache"]
@@ -48,13 +55,21 @@ class EvalGraphCache:
     """Cross-eval amortization state for :func:`transductive_laplace`.
 
     Between eval epochs of one training run the features drift slowly, so
-    two pieces are reusable:
+    these pieces are reusable:
 
       * ``perm``: last eval's cluster permutation; the BSR plan skips its
-        k-means pass (``bsr_plan_from_perm``).  Exact for any permutation;
-        an overflow-fraction check forces a fresh plan once it is stale.
+        k-means pass (``bsr_plan_from_perm``), and with
+        ``GLL_BANDED_KNN=1`` it steers the banded KNN.  Exact for any
+        permutation; an overflow-fraction check forces a fresh plan once it
+        is stale.
       * ``smax`` / ``ovf_cap``: sticky tile and overflow budgets, reused as
         long as they still cover the new graph.
+      * ``shard_perm`` / ``shard_nd``: the edge-sharded eval's cluster
+        permutation (host int64, padded rows included) and the shard count
+        it was made for (``parallel/edge_shard.py``); reusing it skips the
+        k-means and chain ordering.
+      * ``banded_skip``: after the banded KNN failed to certify, the count
+        of evals that skip it before it is tried again.
 
     Unlike the JAX package's cache, this one keeps no CG warm start: every
     solve starts from zero.  The last eval's solution is a poor start once
@@ -69,9 +84,7 @@ class EvalGraphCache:
     tests/test_torch_transductive.py shows the effect on the CPU.
 
     A cache is valid for one problem shape; an (n, k_lab, l) mismatch
-    ignores it.  Pass one instance across calls.  ``shard_perm``,
-    ``shard_nd`` and ``banded_skip`` belong to the sharded eval and the
-    banded KNN, which the port does not have yet; they stay unused.
+    ignores it.  Pass one instance across calls.
     """
 
     def __init__(self):
@@ -107,6 +120,38 @@ def _finish(result, tol: float = 1e-10, return_info: bool = False):
     if return_info:
         return pred, int(iters), err
     return pred
+
+
+def _build_with_cache(x, knn_num: int, epsilon, knn_block: int,
+                      cache: EvalGraphCache | None, n: int, k_lab: int):
+    """The KNN graph of the eval, through the banded KNN when
+    ``GLL_BANDED_KNN=1``, the cache holds a permutation for this shape and
+    the graph has at least ``GLL_BANDED_MIN_N`` nodes; else ``knn_tiled``.
+    The same lists either way (up to ties)."""
+    min_n = int(os.environ.get("GLL_BANDED_MIN_N", 16384))
+    use_banded = (os.environ.get("GLL_BANDED_KNN", "0") == "1"
+                  and cache is not None and cache.matches(n, k_lab)
+                  and cache.perm is not None and n >= min_n)
+    if use_banded and cache.banded_skip > 0:
+        cache.banded_skip -= 1
+        use_banded = False
+    if use_banded:
+        perm = cache.perm.cpu().numpy().astype(np.int64)
+        if len(perm) == n:
+            nbr, dist2, frac = banded_knn(x, knn_num, perm, block=256,
+                                          band=32)
+            if nbr is not None:
+                if eval_debug():
+                    print(f"  [banded knn: fallback_frac={frac:.3f}]",
+                          flush=True)
+                return graph_from_knn(nbr, dist2, epsilon, dtype=x.dtype)
+            # the certificate failed wholesale: skip the banded pass for a
+            # few evals instead of paying for it every time
+            cache.banded_skip = 5
+            if eval_debug():
+                print(f"  [banded knn: uncertifiable (frac={frac:.3f}), "
+                      f"full build]", flush=True)
+    return build_graph(x, knn_num, epsilon, tiled=True, block=knn_block)
 
 
 def _jacobi_cg(matvec, deg, y, tau, k_lab):
@@ -285,13 +330,9 @@ def transductive_laplace(x, y, knn_num: int = 50, epsilon="auto",
 
     ``return_info=True`` returns (pred, cg_iters, final_err).  ``cache``: an
     :class:`EvalGraphCache` shared across calls (permutation reuse, sticky
-    budgets) without changing the result.  ``knn_block`` is
-    the plain KNN route's panel height (CPU tensors only).
+    budgets, the banded KNN's permutation) without changing the result.
+    ``knn_block`` is the plain KNN route's panel height (CPU tensors only).
     """
-    if os.environ.get("GLL_BANDED_KNN", "0") == "1":
-        raise NotImplementedError(
-            "GLL_BANDED_KNN=1: the banded KNN (ops/knn_banded.py) is not "
-            "ported yet (ROADMAP.md, section 1, slice 4, item 17)")
     epsilon = epsilon if isinstance(epsilon, str) else float(epsilon)
     if mode not in ("bsr", "sorted", "scatter", "ell"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -302,7 +343,7 @@ def transductive_laplace(x, y, knn_num: int = 50, epsilon="auto",
             cache.n, cache.k_lab = n, k_lab
         return _finish(res, return_info=return_info)
 
-    g = build_graph(x, knn_num, epsilon, tiled=True, block=knn_block)
+    g = _build_with_cache(x, knn_num, epsilon, knn_block, cache, n, k_lab)
     if mode == "bsr":
         # the tile budget depends on the data; if the tiles exceed device
         # memory, degrade to 'sorted' instead of ending a training run

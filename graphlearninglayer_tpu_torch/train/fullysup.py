@@ -1,8 +1,8 @@
 """Fully-supervised training driver (GL or MLP head).
 
-Twin of ``graphlearninglayer_tpu/train/fullysup.py`` on one device:
-loaders -> model -> optional MLP-head pretrain -> epoch loop (GL or MLP
-branch) with per-step score updates, periodic base-set refresh
+Twin of ``graphlearninglayer_tpu/train/fullysup.py``: loaders -> model ->
+optional MLP-head pretrain -> epoch loop (GL or MLP branch) with per-step
+score updates, periodic base-set refresh
 (random/score), transductive + per-batch eval, checkpoints, loss/accuracy
 record plots and a stdout tee.  Each step runs on the device without a host
 sync; the host loop moves data and reads the metrics in one stacked copy at
@@ -18,18 +18,32 @@ each step sends only index and label vectors, gathers its rows and augments
 them on the device (``data/device_aug.py``), and the transductive eval
 encodes the resident splits.
 
-Not ported yet (they raise ``NotImplementedError``, ROADMAP.md slice 6):
-``--mesh N`` with N > 1 (``auto`` with one visible device runs as ``off``)
-and multi-process runs.
+Multi-device runs (``parallel/``): every rank draws the same batches from
+the seed, the ``make_sharded_*`` steps split each step's rows over the ranks
+(``train/trainer.py``), and a transductive eval of at least
+``--shard_eval_min_n`` nodes goes through the edge-partitioned solve.  Rank
+0 alone prints, plots and writes checkpoints, and its records are returned.
+
+  * Under a launcher (``torchrun --nproc_per_node N -m
+    graphlearninglayer_tpu_torch.train.fullysup ...``, or any launcher that
+    sets ``WORLD_SIZE`` > 1, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+    ``MASTER_PORT``) each process is one rank; ``--mesh`` must be ``auto``
+    or the world size.
+  * Without one, ``--mesh N`` with N > 1 spawns N ranks on this host: one a
+    card (NCCL; fewer than N visible cards raise), or with ``--dev cpu`` N
+    CPU ranks over gloo.  ``--mesh auto`` (the default) is the visible card
+    count, so one card (or ``--dev cpu``) is no mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config.cli import parse_option
 from ..data import (BatchLoader, ScoredDataset, Transform, load_dataset,
@@ -38,7 +52,9 @@ from ..data.device_aug import DeviceTransform
 from ..data.pipeline import downsample_by_stride
 from ..evalx import encode_dataset, test_gl_transductive, test_network
 from ..models import BuildNet
+from ..models import buildnet as _buildnet
 from ..ops import EvalGraphCache, warn_exploding_grad
+from ..parallel import global_mesh, initialize_multihost, spawn_ranks
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.meters import AverageMeter, FileLogger, Throughput
 from ..utils.profiling import trace_steps
@@ -47,11 +63,13 @@ from .optim import make_lr_schedule
 from .trainer import (_device_normalize, create_train_state,
                       make_encode_step, make_gl_train_step,
                       make_gl_train_step_from_data, make_mlp_train_step,
-                      make_mlp_train_step_from_data, resolve_device)
+                      make_mlp_train_step_from_data,
+                      make_sharded_gl_train_step,
+                      make_sharded_gl_train_step_from_data,
+                      make_sharded_mlp_train_step,
+                      make_sharded_mlp_train_step_from_data, resolve_device)
 
 __all__ = ["main", "run_training", "pretrain_linear"]
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, section 1, slice 6)"
 
 
 def pretrain_linear(state, loader, opt, norm=None):
@@ -113,17 +131,13 @@ def _records_and_plots(save_folder, records):
         print(f"plotting skipped: {e}")
 
 
-def _check_single_device(opt, dev: torch.device) -> None:
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(f"a multi-process run {_NOT_PORTED}")
-    mesh_opt = str(getattr(opt, "mesh", "off"))
-    if mesh_opt != "off":
-        n_visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-        want = n_visible if mesh_opt == "auto" else int(mesh_opt)
-        if want > 1:
-            raise NotImplementedError(
-                f"--mesh {mesh_opt} ({want} devices): the multi-device path "
-                f"{_NOT_PORTED}; pass --mesh off to run on one device")
+def _rank_training(opt, model_entry):
+    """A spawned rank's run: the parent's model registry entry (a test may
+    add an encoder), then :func:`run_training`; rank 0 returns the
+    records."""
+    _buildnet.model_dict[opt.model] = model_entry
+    rec = run_training(opt)
+    return rec if dist.get_rank() == 0 else None
 
 
 def run_training(opt) -> dict:
@@ -131,14 +145,50 @@ def run_training(opt) -> dict:
     ``train_acc``, ``epoch_s`` (the step loop's seconds, ending in a
     device sync) and ``cg_iters`` (mean forward + adjoint CG iterations a
     step, with ``--gl_solver cg``), ``steps_per_epoch``, every eval's
-    ``test_acc`` and its transductive ``eval`` stats, and the augmentation
+    ``test_acc`` and its transductive ``eval`` stats, the augmentation
     backend (``loader_backend``: the loader's, or ``device`` with
-    ``--device_data``)."""
+    ``--device_data``), ``step_loss`` (every step's loss) and ``mesh``,
+    the ranks' layout (None on one device).  In a multi-device run, rank
+    0's records."""
     if opt.dev == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --dev cpu to run on "
                            "the CPU")
-    dev = resolve_device(opt.dev)
-    _check_single_device(opt, dev)
+    mesh_opt = str(getattr(opt, "mesh", "off"))
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE") or 1))
+    if world > 1 and mesh_opt not in ("auto", str(world)):
+        raise ValueError(f"under a launcher --mesh must be 'auto' or the "
+                         f"world size {world}, not {mesh_opt!r}")
+    if not initialize_multihost(device=opt.dev):
+        n_visible = torch.cuda.device_count() if opt.dev == "cuda" else 1
+        want = (1 if mesh_opt == "off" else n_visible if mesh_opt == "auto"
+                else int(mesh_opt))
+        if want > 1:
+            if opt.dev == "cuda" and n_visible < want:
+                raise ValueError(f"--mesh {want} but only {n_visible} cards "
+                                 f"are visible")
+            # CPU ranks share this process's thread budget
+            threads = max(1, torch.get_num_threads() // want)
+            return spawn_ranks(_rank_training, want,
+                               (opt, _buildnet.model_dict[opt.model]),
+                               device=opt.dev,
+                               threads=threads if opt.dev == "cpu"
+                               else None)[0]
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        return _train(opt)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return _train(opt)
+
+
+def _train(opt) -> dict:
+    # a rank of a process group trains over the mesh of all ranks
+    mesh = eval_mesh = None
+    if dist.is_initialized():
+        mesh = global_mesh(("data", "graph"))
+        eval_mesh = global_mesh(("graph",))
+        print(f"mesh: {mesh.size} devices {mesh.shape} ({mesh.backend})")
+    primary = mesh is None or mesh.rank == 0
+    dev = mesh.device if mesh is not None else resolve_device(opt.dev)
     rng_np = np.random.default_rng(opt.seed)
     spec = load_dataset(opt.dataset, allow_synthetic_fallback=True,
                         **synth_kwargs_from_opt(opt))
@@ -191,6 +241,9 @@ def run_training(opt) -> dict:
                   "--start_epochs is 0 — weights are warmed and the epoch "
                   f"loop restarts at 1; to RESUME pass --start_epochs "
                   f"{ckpt_epoch} as well")
+    if mesh is not None:
+        # every rank starts from rank 0's weights and statistics
+        mesh.broadcast_module(state.model)
 
     # the tau convention: the train step passes --temp as tau to the GL op,
     # the transductive eval uses --tau
@@ -210,10 +263,21 @@ def run_training(opt) -> dict:
                       generator=torch.Generator(device=dev).manual_seed(
                           opt.seed))
         rng_order = np.random.default_rng(opt.seed * 7919 + 1)
-        gl_step = make_gl_train_step_from_data(
-            num_classes, spec.image_shape, **aug_kw, **gl_kw)
-        mlp_step = make_mlp_train_step_from_data(
-            spec.image_shape, norm=step_norm, device=dev, **aug_kw)
+        if mesh is not None:
+            del gl_kw["device"]
+            gl_step = make_sharded_gl_train_step_from_data(
+                num_classes, spec.image_shape, mesh, **aug_kw, **gl_kw)
+            mlp_step = make_sharded_mlp_train_step_from_data(
+                spec.image_shape, mesh, norm=step_norm, **aug_kw)
+        else:
+            gl_step = make_gl_train_step_from_data(
+                num_classes, spec.image_shape, **aug_kw, **gl_kw)
+            mlp_step = make_mlp_train_step_from_data(
+                spec.image_shape, norm=step_norm, device=dev, **aug_kw)
+    elif mesh is not None:
+        del gl_kw["device"]
+        gl_step = make_sharded_gl_train_step(num_classes, mesh, **gl_kw)
+        mlp_step = make_sharded_mlp_train_step(mesh, norm=step_norm)
     else:
         gl_step = make_gl_train_step(num_classes, **gl_kw)
         mlp_step = make_mlp_train_step(norm=step_norm, device=dev)
@@ -237,8 +301,11 @@ def run_training(opt) -> dict:
                     torch.as_tensor(base_labels, device=dev))
     backend = "device" if device_data else loader.backend
     records = {"loss": [], "train_acc": [], "test_acc": [], "epoch_s": [],
-               "cg_iters": [], "eval": [], "steps_per_epoch": len(loader),
-               "loader_backend": backend}
+               "cg_iters": [], "eval": [], "step_loss": [],
+               "steps_per_epoch": len(loader),
+               "loader_backend": backend,
+               "mesh": None if mesh is None else dict(
+                   mesh.shape, backend=mesh.backend)}
     print(f"data: {spec.name} {tuple(spec.image_shape)}, "
           f"{len(spec.train_labels)} train / {len(spec.test_labels)} test, "
           f"{len(loader)} steps an epoch, {backend} augmentation")
@@ -264,7 +331,8 @@ def run_training(opt) -> dict:
             state, base_imgs, base_labels, spec.test_images,
             spec.test_labels, eval_tf.normalize, num_classes,
             train_images=spec.train_images, knn_num=50, epsilon=opt.epsilon,
-            tau=opt.tau, norm=eval_norm, resident=resident,
+            tau=opt.tau, norm=eval_norm, mesh=eval_mesh,
+            shard_min_n=opt.shard_eval_min_n, resident=resident,
             cache=eval_cache, device=dev, stats=stats)
         records["eval"].append(dict(stats, acc=tacc))
         if opt.sup_train_type == "mlp":
@@ -343,6 +411,7 @@ def run_training(opt) -> dict:
                 for m, _ in pending]).cpu().numpy()
             for (m, n_lab), row in zip(pending, rows):
                 losses.update(float(row[0]), n_lab)
+                records["step_loss"].append(float(row[0]))
                 accs.update(float(row[1]), n_lab)
                 # the per-step parameter NaN sweep, computed on the device
                 # inside the step and read here
@@ -431,25 +500,30 @@ def run_training(opt) -> dict:
 
         if epoch % opt.plot_freq_ss == 0 or epoch == opt.epochs:
             records["test_acc"].append(evaluate())
-            save_checkpoint(os.path.join(opt.save_folder, "ckpt"), state,
-                            epoch, opt)
-            _records_and_plots(opt.save_folder, records)
-            # per-interval feature embedding; the final epoch's embedding
-            # lands after the loop
-            if epoch % opt.plot_freq_ss == 0 and epoch != opt.epochs:
-                feature_viz(os.path.join(opt.save_folder,
-                                         f"ckpt_epoch_{epoch}"))
+            if primary:
+                save_checkpoint(os.path.join(opt.save_folder, "ckpt"), state,
+                                epoch, opt)
+                _records_and_plots(opt.save_folder, records)
+                # per-interval feature embedding; the final epoch's
+                # embedding lands after the loop
+                if epoch % opt.plot_freq_ss == 0 and epoch != opt.epochs:
+                    feature_viz(os.path.join(opt.save_folder,
+                                             f"ckpt_epoch_{epoch}"))
 
-    save_checkpoint(os.path.join(opt.save_folder, "last"), state, opt.epochs,
-                    opt)
-    _records_and_plots(opt.save_folder, records)
-    feature_viz(os.path.join(opt.save_folder, f"ckpt_epoch_{opt.epochs}"))
+    if primary:
+        save_checkpoint(os.path.join(opt.save_folder, "last"), state,
+                        opt.epochs, opt)
+        _records_and_plots(opt.save_folder, records)
+        feature_viz(os.path.join(opt.save_folder,
+                                 f"ckpt_epoch_{opt.epochs}"))
     loader.close()
     return records
 
 
 def main(argv=None):
     opt = parse_option(argv)
+    if int(os.environ.get("RANK", "0")) != 0:
+        return run_training(opt)      # a launched rank above 0 logs nothing
     stamp = time.strftime("%Y%m%d-%H%M%S")
     logger = FileLogger(os.path.join(opt.save_folder,
                                      f"output_record_{stamp}.txt"))

@@ -11,9 +11,29 @@ also where the exploding-gradient warning is raised.
 Batches arrive as uint8 NHWC arrays (numpy or tensors), exactly as the JAX
 steps take them, and are normalized on the device.  The ``*_from_data``
 steps take a device-resident uint8 dataset instead, and gather and augment
-each step's rows on the device (``--device_data``).  The JAX package's
-``make_sharded_*`` steps belong to the multi-device path, which is not
-ported.
+each step's rows on the device (``--device_data``).
+
+The ``make_sharded_*`` steps run one step over the ranks of a mesh
+(``parallel/mesh.py``), each rank encoding its block of the step's rows.
+One sharded step equals the unsharded step, as the JAX twins' GSPMD
+sharding does:
+
+  * BatchNorm statistics span every rank's rows: the steps turn the
+    model's ``nn.BatchNorm2d`` layers into ``CrossRankBatchNorm2d``
+    (same parameters, buffers and state-dict names);
+  * the GL head sees all base + batch nodes: the features are all-gathered
+    with autograd and every rank runs the same dense op (K1 once a rank a
+    step) and the same loss; that replicated loss's gradient with respect to
+    a rank's own rows is the slice of its gradient there, so the parameter
+    gradients of the ranks sum, with one all-reduce, to the unsharded
+    gradient;
+  * the scores for the host's base-set selection are the full (B,) vector
+    on every rank.
+
+Every rank takes the whole batch (every rank draws the same batches from
+the seed) and encodes its own rows; the from-data steps gather and augment
+the whole batch on every rank from the same generator state, so their
+draws equal the unsharded step's.
 
 The entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA they raise rather than move to the CPU on their own.
@@ -29,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import laplace_learning, warn_exploding_grad
+from ..parallel.mesh import Mesh, convert_cross_rank_bn, gather_rows
 from .losses import custom_ce_loss
 from .optim import make_optimizer
 
@@ -36,7 +57,10 @@ __all__ = ["TrainState", "create_train_state", "params_finite",
            "resolve_device", "make_gl_train_step", "make_gl_eval_step",
            "make_mlp_train_step", "make_mlp_eval_step", "make_encode_step",
            "make_gl_train_step_from_data", "make_mlp_train_step_from_data",
-           "make_encode_step_from_data", "metrics_to_host"]
+           "make_encode_step_from_data", "metrics_to_host",
+           "make_sharded_gl_train_step", "make_sharded_mlp_train_step",
+           "make_sharded_gl_train_step_from_data",
+           "make_sharded_mlp_train_step_from_data"]
 
 
 @dataclass
@@ -124,24 +148,61 @@ def _zero_grads(model: nn.Module) -> None:
             p.grad.zero_()
 
 
+class _Shard:
+    """A sharded step's view of its rows: ``sizes[r]`` consecutive rows of
+    the step's n on rank r, this rank's from ``lo``."""
+
+    def __init__(self, mesh: Mesh, n: int):
+        self.mesh = mesh
+        self.sizes = [n // mesh.size + (r < n % mesh.size)
+                      for r in range(mesh.size)]
+        self.lo = sum(self.sizes[:mesh.rank])
+        self.hi = self.lo + self.sizes[mesh.rank]
+
+    def begin(self, model: nn.Module) -> None:
+        convert_cross_rank_bn(model, self.mesh)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return gather_rows(self.mesh, t, self.sizes)
+
+    def reduce_grads(self, model: nn.Module) -> None:
+        """Sum the ranks' parameter gradients (one all-reduce a dtype)."""
+        grads = [p.grad for p in model.parameters()]
+        for dt in {g.dtype for g in grads}:
+            same = [g for g in grads if g.dtype == dt]
+            flat = self.mesh.all_reduce(torch.cat([g.reshape(-1)
+                                                   for g in same]))
+            for g, part in zip(same, flat.split([g.numel() for g in same])):
+                g.copy_(part.view_as(g))
+
+
 def _gl_update(state: TrainState, x: torch.Tensor, base_labels,
                labels: torch.Tensor, num_classes: int, op_kw: dict,
-               score_type: str, dev: torch.device):
+               score_type: str, dev: torch.device,
+               shard: _Shard | None = None):
     """The GL step's body on a normalized NCHW batch ``x`` (base rows
     first): encode, the graph head with base labels, CE on the batch
-    labels, one optimizer update.  Returns ``(state, metrics, scores)``."""
+    labels, one optimizer update.  Returns ``(state, metrics, scores)``.
+    With ``shard``, ``x`` holds this rank's rows only (see the module
+    docstring)."""
     model = state.model
     model.train()
+    if shard is not None:
+        shard.begin(model)
     x = x.to(next(model.parameters()).dtype)
     y = F.one_hot(_to_device(base_labels, dev).long(),
                   num_classes).to(x.dtype)
 
     stats: dict = {}
     _, features = model(x)
+    if shard is not None:
+        features = shard.gather(features)
     pred = laplace_learning(features, y, stats=stats, **op_kw)
     loss = custom_ce_loss(pred, labels)
     _zero_grads(model)
     loss.backward()
+    if shard is not None:
+        shard.reduce_grads(model)
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
@@ -160,16 +221,24 @@ def _gl_update(state: TrainState, x: torch.Tensor, base_labels,
     return state, metrics, _scores(pred, labels, score_type)
 
 
-def _mlp_update(state: TrainState, x: torch.Tensor, labels: torch.Tensor):
+def _mlp_update(state: TrainState, x: torch.Tensor, labels: torch.Tensor,
+                shard: _Shard | None = None):
     """The MLP step's body on a normalized NCHW batch ``x``: the aux
     classifier's CE and one optimizer update; returns
-    ``(state, metrics)``."""
+    ``(state, metrics)``.  With ``shard``, ``x`` holds this rank's rows
+    only."""
     model = state.model
     model.train()
+    if shard is not None:
+        shard.begin(model)
     pred, _ = model(x.to(next(model.parameters()).dtype))
+    if shard is not None:
+        pred = shard.gather(pred)
     loss = custom_ce_loss(pred, labels)
     _zero_grads(model)
     loss.backward()
+    if shard is not None:
+        shard.reduce_grads(model)
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
@@ -274,6 +343,89 @@ def make_mlp_train_step_from_data(image_shape, norm=None, aug=None,
                               generator)
         return _mlp_update(state, _device_normalize(images, norm),
                            _to_device(labels, dev).long())
+
+    return step
+
+
+def make_sharded_gl_train_step(num_classes: int, mesh: Mesh, tau: float,
+                               epsilon="auto", k: int = 25,
+                               solver: str = "cholesky",
+                               score_type: str = "entropy",
+                               norm=None) -> Callable:
+    """``make_gl_train_step`` over the ranks of ``mesh``, on each rank's
+    device: ``step(state, base_images, base_labels, images, labels)`` with
+    the whole batch on every rank returns what the unsharded step returns
+    (the same loss, update and (B,) scores on every rank); rank r encodes
+    its block of the base + batch rows (see the module docstring)."""
+    dev = mesh.device
+    op_kw = dict(tau=tau, epsilon=epsilon, k=k, solver=solver)
+
+    def step(state: TrainState, base_images, base_labels, images, labels):
+        shard = _Shard(mesh, len(base_images) + len(images))
+        x = torch.cat([_to_device(base_images, dev),
+                       _to_device(images, dev)])[shard.lo:shard.hi]
+        return _gl_update(state, _device_normalize(x, norm), base_labels,
+                          _to_device(labels, dev).long(), num_classes,
+                          op_kw, score_type, dev, shard)
+
+    return step
+
+
+def make_sharded_mlp_train_step(mesh: Mesh, norm=None) -> Callable:
+    """``make_mlp_train_step`` over the ranks of ``mesh``:
+    ``step(state, images, labels)`` with the whole batch on every rank;
+    rank r encodes its block of the rows."""
+    dev = mesh.device
+
+    def step(state: TrainState, images, labels):
+        shard = _Shard(mesh, len(images))
+        x = _to_device(images, dev)[shard.lo:shard.hi]
+        return _mlp_update(state, _device_normalize(x, norm),
+                           _to_device(labels, dev).long(), shard)
+
+    return step
+
+
+def make_sharded_gl_train_step_from_data(num_classes: int, image_shape,
+                                         mesh: Mesh, tau: float,
+                                         epsilon="auto", k: int = 25,
+                                         solver: str = "cholesky",
+                                         score_type: str = "entropy",
+                                         norm=None, aug=None,
+                                         generator=None) -> Callable:
+    """``make_gl_train_step_from_data`` over the ranks of ``mesh``: the
+    dataset is resident on every rank's device; every rank gathers and
+    augments the step's whole batch (the same draws as the unsharded step)
+    and encodes its own block of the rows."""
+    dev = mesh.device
+    op_kw = dict(tau=tau, epsilon=epsilon, k=k, solver=solver)
+
+    def step(state: TrainState, data, base_idx, base_labels, idx, labels):
+        rows = torch.cat([_to_device(base_idx, dev), _to_device(idx, dev)])
+        shard = _Shard(mesh, len(rows))
+        images = _gather_rows(data, rows, image_shape, aug, generator)
+        return _gl_update(state,
+                          _device_normalize(images[shard.lo:shard.hi], norm),
+                          base_labels, _to_device(labels, dev).long(),
+                          num_classes, op_kw, score_type, dev, shard)
+
+    return step
+
+
+def make_sharded_mlp_train_step_from_data(image_shape, mesh: Mesh,
+                                          norm=None, aug=None,
+                                          generator=None) -> Callable:
+    """``make_mlp_train_step_from_data`` over the ranks of ``mesh`` (see
+    make_sharded_gl_train_step_from_data)."""
+    dev = mesh.device
+
+    def step(state: TrainState, data, idx, labels):
+        idx = _to_device(idx, dev)
+        shard = _Shard(mesh, len(idx))
+        images = _gather_rows(data, idx, image_shape, aug, generator)
+        return _mlp_update(state,
+                           _device_normalize(images[shard.lo:shard.hi], norm),
+                           _to_device(labels, dev).long(), shard)
 
     return step
 

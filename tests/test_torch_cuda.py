@@ -592,3 +592,142 @@ def test_compare_step_on_card_launches_k1_once(cuda_device):
     assert mlp_loss.is_cuda and gl_loss.is_cuda
     assert np.isfinite(mlp_loss.item()) and np.isfinite(gl_loss.item())
     assert state.step == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(1500, 128, 25), (1001, 100, 25),
+                                   (3000, 33, 50)])
+def test_knn_row_ranges_on_card_equal_the_full_call(cuda_device, n, d, k):
+    """K2 over a row range returns the full call's rows bit for bit (halves,
+    ragged ends, a range starting off a multiple of 4, a single row), with
+    self at its global index; against the plain version's range as in
+    test_knn_kernel_matches_plain_on_card; a bad range raises."""
+    x = _knn_features(n, d, seed=n + 1).to(cuda_device)
+    nbr, dist2 = k2.fused_knn(x, k)
+    for r0, r1 in ((0, n // 2), (n // 2, n), (3, n - 5), (n - 1, n),
+                   (777, 1000)):
+        before = k2.fused_knn.launches
+        got_n, got_d = k2.fused_knn(x, k, rows=(r0, r1))
+        torch.cuda.synchronize()
+        assert k2.fused_knn.launches == before + 1
+        assert got_n.shape == (r1 - r0, k)
+        assert torch.equal(got_n, nbr[r0:r1])
+        assert torch.equal(got_d, dist2[r0:r1])
+        pn, pd = k2.fused_knn_plain(x, k + 1, 512, rows=(r0, r1))
+        safe = (pd[:, k] - pd[:, k - 1]) > 1e-5 * pd[:, k - 1]
+        same = (torch.sort(got_n, 1).values
+                == torch.sort(pn[:, :k], 1).values).all(1)
+        assert bool(same[safe].all())
+        assert (got_d - pd[:, :k]).abs().max().item() <= 1e-5
+    for bad in ((5, 5), (-1, 3), (0, n + 1)):
+        with pytest.raises(ValueError, match="rows"):
+            k2.fused_knn(x, k, rows=bad)
+
+
+@pytest.fixture
+def nccl_world_of_one(cuda_device, tmp_path):
+    """This process as a process group of one rank over NCCL."""
+    import torch.distributed as dist
+
+    from graphlearninglayer_tpu_torch.parallel import (global_mesh,
+                                                       initialize_multihost)
+
+    assert initialize_multihost(f"file://{tmp_path}/store", 1, 0, 0, "cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        yield global_mesh(("data", "graph"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cross_rank_batchnorm_and_sharded_gl_step_on_card(nccl_world_of_one):
+    """In a world of one over NCCL the cross-rank BatchNorm is
+    nn.BatchNorm2d (output, input gradient and running statistics equal),
+    and the sharded GL step is the unsharded step (two steps of ResNet-18
+    at 40 + 160 images, TF32 off, each from the same state: loss within
+    1e-5 relative, scores within 1e-4), with K1 once a step.  (Run free,
+    two trajectories may part after a step: the op's backward sums with
+    atomics on the card.)  The two-pass statistics across ranks are
+    held against the unsharded step on gloo CPU ranks
+    (tests/test_torch_sharded_train.py) and by chip_smoke.py's two ranks
+    sharing the card."""
+    from graphlearninglayer_tpu_torch.parallel import (
+        CrossRankBatchNorm2d, convert_cross_rank_bn)
+    from graphlearninglayer_tpu_torch.train import make_sharded_gl_train_step
+
+    mesh = nccl_world_of_one
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn(16, 8, 5, 5, generator=gen) * 3 + 1).cuda()
+    bn = torch.nn.BatchNorm2d(8).cuda()
+    cross = convert_cross_rank_bn(torch.nn.Sequential(
+        torch.nn.BatchNorm2d(8)).cuda(), mesh)[0]
+    assert isinstance(cross, CrossRankBatchNorm2d)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    ya, yb = bn(xa), cross(xb)
+    (ya * ya.detach()).sum().backward()
+    (yb * yb.detach()).sum().backward()
+    assert torch.equal(ya, yb) and torch.equal(xa.grad, xb.grad)
+    for name in ("running_mean", "running_var", "num_batches_tracked"):
+        assert torch.equal(getattr(bn, name), getattr(cross, name))
+
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (400, 32, 32, 3)).astype(np.uint8)
+    labels = rng.integers(0, 10, 400)
+
+    def state():
+        model = BuildNet("resnet18", num_classes=10,
+                         generator=torch.Generator().manual_seed(0))
+        return create_train_state(model, make_lr_schedule(0.01, 1, 2))
+
+    norm = CHANNEL_STATS["cifar10"]
+    plain = make_gl_train_step(10, tau=0.07, k=25, norm=norm)
+    sharded = make_sharded_gl_train_step(10, mesh, tau=0.07, k=25,
+                                         norm=norm)
+    sa, sb = state(), state()
+    for s in range(2):
+        b, t = slice(200 * s, 200 * s + 40), slice(200 * s + 40, 200 * s + 200)
+        args = (images[b], labels[b], images[t], labels[t])
+        sa.model.load_state_dict(sb.model.state_dict())
+        sa, ma, sca = plain(sa, *args)
+        before = k1.fused_affinity_sym.launches
+        sb, mb, scb = sharded(sb, *args)
+        assert k1.fused_affinity_sym.launches == before + 1
+        la, lb = metrics_to_host(ma)["loss"], metrics_to_host(mb)["loss"]
+        assert abs(la - lb) <= 1e-5 * abs(la), (s, la, lb)
+        assert (sca - scb).abs().max().item() <= 1e-4
+    torch.backends.cudnn.allow_tf32 = True
+
+
+@pytest.mark.cuda
+def test_edge_sharded_eval_on_card_launches_k2_once(nccl_world_of_one,
+                                                    monkeypatch):
+    """The edge-sharded eval in a world of one: one K2 launch a build, over
+    the rank's rows; the single-device solve's classes on 99.9% of rows;
+    the cached second eval reuses the permutation."""
+    from graphlearninglayer_tpu_torch.ops import (EvalGraphCache,
+                                                  one_hot_encode,
+                                                  transductive_laplace)
+    from graphlearninglayer_tpu_torch.parallel import (
+        edge_sharded_transductive_laplace, global_mesh)
+
+    mesh = global_mesh(("graph",))
+    x = _knn_features(5003, 64, seed=7).cuda()
+    y = one_hot_encode(torch.arange(60) % 10, 10).cuda()
+    rows = []
+    launch = k2._launch
+    monkeypatch.setattr(k2, "_launch", lambda x, k, r0, r1: rows.append(
+        (r0, r1)) or launch(x, k, r0, r1))
+    cache = EvalGraphCache()
+    before = k2.fused_knn.launches
+    pred, iters, err = edge_sharded_transductive_laplace(
+        mesh, x, y, knn_num=50, return_info=True, cache=cache)
+    assert k2.fused_knn.launches == before + 1 and rows == [(0, 5003)]
+    assert err <= 1e-10 and cache.shard_nd == 1
+    want = transductive_laplace(x, y, knn_num=50)
+    agree = (pred.argmax(1) == want.argmax(1)).float().mean().item()
+    assert agree >= 0.999
+    perm = cache.shard_perm
+    edge_sharded_transductive_laplace(mesh, x, y, knn_num=50, cache=cache)
+    assert cache.shard_perm is perm and k2.fused_knn.launches == before + 3

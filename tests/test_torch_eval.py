@@ -22,6 +22,7 @@ from graphlearninglayer_tpu_torch.evalx import \
     test_gl_transductive as gl_transductive
 from graphlearninglayer_tpu_torch.models import BuildNet
 from graphlearninglayer_tpu_torch.ops import EvalGraphCache
+from graphlearninglayer_tpu_torch.parallel import make_mesh
 from graphlearninglayer_tpu_torch.train import (create_train_state,
                                                 make_encode_step,
                                                 make_lr_schedule)
@@ -131,9 +132,14 @@ def test_gl_transductive_caps_k_and_guards(setup, monkeypatch):
                                   first[:8].numpy())
     np.testing.assert_array_equal(seen["x"][-8:].numpy(),
                                   first[-8:].numpy())
+    # a mesh of one rank keeps the single-device solve and its result
     args = (state, *parts["base"], *parts["test"], None, NUM_CLASSES)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        gl_transductive(*args, mesh=object(), device="cpu")
+    stats = {}
+    acc = gl_transductive(*args, mesh=make_mesh(1, axes=("graph",),
+                                                device="cpu"),
+                          shard_min_n=1, stats=stats)
+    assert stats["route"] == "single"
+    assert acc == gl_transductive(*args, device="cpu")
 
 
 def test_encode_dataset_pads_and_trims_the_tail(setup):

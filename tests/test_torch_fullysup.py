@@ -232,7 +232,8 @@ def test_mlp_branch_and_cg_solver_run(tiny_opt):
     assert np.isfinite(rec["loss"][0]) and rec["cg_iters"][0] > 0
 
 
-def test_main_tees_stdout_and_unported_options_raise(tiny_opt, capsys):
+def test_main_tees_stdout_and_unported_options_raise(tiny_opt, capsys,
+                                                     monkeypatch):
     records = fullysup.main(tiny_opt + ["--epochs", "1"])
     opt = parse_option(tiny_opt)
     logs = [f for f in os.listdir(opt.save_folder)
@@ -245,6 +246,10 @@ def test_main_tees_stdout_and_unported_options_raise(tiny_opt, capsys):
     records = fullysup.main(tiny_opt + ["--epochs", "1", "--device_data"])
     assert records["loader_backend"] == "device"
     assert len(records["loss"]) == 1 and np.isfinite(records["loss"][0])
-    # the multi-device path is not
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        fullysup.run_training(parse_option(tiny_opt + ["--mesh", "2"]))
+    # so is the multi-device path (tests/test_torch_sharded_driver.py);
+    # as in JAX, a mesh wider than the visible cards raises
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="only 1 cards"):
+        fullysup.run_training(parse_option(
+            [a if a != "cpu" else "cuda" for a in tiny_opt] + ["--mesh", "2"]))

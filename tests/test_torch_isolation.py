@@ -23,8 +23,12 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 
 def _port_files():
     files = sorted((ROOT / "graphlearninglayer_tpu_torch").rglob("*.py"))
+    # tests/torch_ranks.py runs in the spawned ranks of the multi-rank
+    # tests, which import no JAX
     return files + [ROOT / "chip_smoke.py", ROOT / "k1_turns.py",
-                    ROOT / "k2_turns.py", ROOT / "mnist_fgsm_probe.py"]
+                    ROOT / "k2_turns.py", ROOT / "mnist_fgsm_probe.py",
+                    ROOT / "parallel_probe.py",
+                    ROOT / "tests" / "torch_ranks.py"]
 
 
 def _imported_roots(path):
@@ -51,9 +55,13 @@ def test_port_imports_no_jax():
                 "train/adversarial_driver",
                 # the remaining drivers and the device-resident data
                 "data/device_aug", "data/pseudo_label",
-                "train/compare_to_mlp", "train/supcon"):
+                "train/compare_to_mlp", "train/supcon",
+                # the banded KNN and the multi-device package
+                "ops/knn_banded", "parallel/__init__", "parallel/mesh",
+                "parallel/multihost", "parallel/graph_shard",
+                "parallel/edge_shard"):
         assert f"graphlearninglayer_tpu_torch/{mod}.py" in names, mod
-    assert len(files) >= 34
+    assert len(files) >= 40
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -156,3 +164,22 @@ def test_remaining_drivers_raise_without_cuda(no_cuda, tmp_path,
         assert callable(make(device="cpu"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         harness.encode_dataset_resident(None, None, 4, (8, 8, 3), None)
+
+
+def test_multidevice_entry_points_raise_without_cuda(no_cuda, tmp_path,
+                                                     monkeypatch):
+    """A mesh and a rank run on the card unless given the CPU, and raise
+    without CUDA; so does the driver's --mesh."""
+    from graphlearninglayer_tpu_torch.parallel import (initialize_multihost,
+                                                       make_mesh)
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh(1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_multihost("file://" + str(tmp_path / "store"), 1, 0)
+    with pytest.raises(RuntimeError, match="--dev cpu"):
+        fullysup.main(["--sup_train_type", "gl", "--dataset", "synthetic",
+                       "--mesh", "2"])
+    assert make_mesh(1, device="cpu").device.type == "cpu"
+    assert not initialize_multihost()        # no launcher: one process

@@ -196,9 +196,11 @@ def test_finish_warning_and_guards(monkeypatch, capsys):
     assert y.dtype == torch.float32 and y.sum() == 4
     with pytest.raises(ValueError, match="unknown mode"):
         tt.transductive_laplace(x, y, knn_num=5, mode="dense")
+    # GLL_BANDED_KNN=1 without a cache builds the graph with knn_tiled
+    want = tt.transductive_laplace(x, y, knn_num=5)
     monkeypatch.setenv("GLL_BANDED_KNN", "1")
-    with pytest.raises(NotImplementedError, match="banded"):
-        tt.transductive_laplace(x, y, knn_num=5)
+    torch.testing.assert_close(tt.transductive_laplace(x, y, knn_num=5),
+                               want, rtol=0, atol=0)
     for value, on in (("0", False), ("", False), ("1", True)):
         monkeypatch.setenv("GLL_EVAL_DEBUG", value)
         assert tt.eval_debug() is on

@@ -15,7 +15,7 @@ import torch.nn as nn
 from graphlearninglayer_tpu.models import buildnet as jbn
 from graphlearninglayer_tpu.models import l2_normalize as jl2
 from graphlearninglayer_tpu_torch.models import buildnet as tbn
-from graphlearninglayer_tpu_torch.models import l2_normalize
+from tests.torch_ranks import TTiny
 
 
 class JTiny(fnn.Module):
@@ -23,17 +23,6 @@ class JTiny(fnn.Module):
     def __call__(self, x, train: bool = True):
         x = fnn.relu(fnn.Conv(8, (3, 3), strides=2, padding=1)(x))
         return jl2(fnn.Dense(16)(jnp.mean(x, axis=(1, 2))))
-
-
-class TTiny(nn.Module):
-    def __init__(self, in_channel: int = 3):
-        super().__init__()
-        self.conv = nn.Conv2d(in_channel, 8, 3, stride=2, padding=1)
-        self.dense = nn.Linear(8, 16)
-
-    def forward(self, x):
-        return l2_normalize(self.dense(torch.relu(self.conv(x))
-                                       .mean(dim=(2, 3))))
 
 
 class F64Numpy:
