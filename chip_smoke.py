@@ -37,6 +37,14 @@ each:
           bar, timed beside the half's one-triangle bound;
   op      laplace_learning forward + backward on the card in float32 against
           the port's float64 CPU result on the same input;
+  entry   the flagship forward through entry() (graphlearninglayer_tpu_torch/
+          entry.py, the twin of __graft_entry__.py): ResNet-18 and the
+          dense op at 250 + 1250 nodes, float32 with TF32 off; its ms
+          (CUDA events, median of 10), K1 once a forward, the KNN sets
+          against the same forward on the CPU in float64 outside the
+          float32 tie band, and the scores against the CPU's float64 op on
+          the card's graph within 3e-4 (the CPU float32 op's error there
+          printed beside it);
   train   20 full-width train steps in float32 (TF32 off everywhere), 20
           with float32 parameters and TF32 convolutions (cuDNN's default),
           then 5 in bf16 (encoder under autocast, TF32 off), and one eval
@@ -138,6 +146,25 @@ each:
           60,250 nodes (k=50, tau 1e-8) against the single-device solve:
           residual <= 1e-10, >= 99.9% equal argmax, K2 once a build, s a
           solve;
+  dryrun  dryrun_multichip(2), two spawned ranks sharing the card over
+          gloo, and dryrun_multichip(1), a world of one over NCCL: the
+          driver on the mesh twice (edge-sharded evals, then
+          --device_data), the row- and edge-sharded solves within 1e-4 of
+          each other, one sharded FGSM; each run's seconds, its ranks'
+          parts, no "exploding gradient" in the ranks' output, and on
+          every rank K1 6 times in the driver and twice in the FGSM, K2 4
+          times in the driver and twice in the solves; before each run K1
+          and K2 against their plain versions at the shapes it gives them
+          (K2 on every rank's row range);
+  sharded_attack  make_sharded_gl_fast_gradient_attack at the cifar10
+          attack's shape (PreActResNet-18 with random weights, 500 base +
+          200 batch = 700 nodes, tau 0, k 25), an FGSM and an IFGSM point
+          at eps 0.05, beside the single-device attack (TF32 off, cuDNN
+          and PyTorch deterministic): a world of one over NCCL gives its
+          images and predictions exactly; two ranks over gloo the first
+          step's input gradient within 1e-4 of its largest entry and >= 99%
+          equal predictions; K1 iters + 1 times a point on every rank;
+          seconds a point each way;
   banded  GLL_BANDED_KNN=1: three cached 60,250-node solves on drifted
           features through the banded KNN and through K2, the banded
           build's ms beside K2's and its fallback fraction;
@@ -573,7 +600,7 @@ def phase_k2():
 
 def k2_against_plain(nbr, dist2, pn, pd, row0: int, what: str) -> dict:
     """K2's lists of rows row0.. against the plain version's, which has one
-    more column (k + 1).  Under float32 rounding a row can swap a neighbor
+    more column (k + 1) unless k is every row of x.  Under float32 rounding a row can swap a neighbor
     across the k-th/(k+1)-th boundary only where the plain gap there is
     below twice the measured max |dist2 diff|: the boundary-tie set.  Checks
     self first, the error bar, that every differing row lies in the tie set
@@ -582,7 +609,10 @@ def k2_against_plain(nbr, dist2, pn, pd, row0: int, what: str) -> dict:
     import torch
 
     n, k = nbr.shape
-    edge = pd[:, k]                           # the plain (k+1)-th distance
+    # the plain (k+1)-th distance; with k = every row of x there is none,
+    # and no neighbor can cross the boundary
+    edge = (pd[:, k] if pd.shape[1] > k
+            else torch.full_like(pd[:, 0], float("inf")))
     pn, pd = pn[:, :k], pd[:, :k]
     err = (dist2 - pd).abs().max().item()
     band = 2.0 * err
@@ -2382,6 +2412,472 @@ def phase_banded(k2_full_ms: float) -> dict:
     return dict(fallback_frac=frac, banded_build_ms=build_ms)
 
 
+def _captured(fn):
+    """``(fn(), text)``: what ``fn`` and the processes it starts write to
+    this process's stdout and stderr (file descriptors 1 and 2), kept out
+    of the smoke's own output.  If ``fn`` raises, the text's tail goes to
+    stderr first."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryFile(mode="w+") as f:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        saved = os.dup(1), os.dup(2)
+        os.dup2(f.fileno(), 1)
+        os.dup2(f.fileno(), 2)
+        ok = False
+        try:
+            result = fn()
+            ok = True
+        finally:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os.dup2(saved[0], 1)
+            os.dup2(saved[1], 2)
+            os.close(saved[0])
+            os.close(saved[1])
+            f.seek(0)
+            text = f.read()
+            if not ok:
+                print(text[-4000:], file=sys.stderr)
+    return result, text
+
+
+# entry()'s scores against the CPU float64 forward on the card's graph
+# (phase_entry): above the op phase's 1e-4, which float32 itself exceeds
+# on the random-weight ResNet's crowded features
+ENTRY_PRED_TOL = 3e-4
+
+
+def phase_entry() -> dict:
+    """entry() at the flagship shape (ResNet-18, 250 + 1,250 nodes, k=25,
+    float32, TF32 off): its forward's ms (CUDA events, median of 10 after a
+    warm-up), K1 exactly once a forward, and the scores against the same
+    forward through the port on the CPU in float64 (entry(device="cpu",
+    dtype=torch.float64) draws the same weights and images).
+
+    The random-weight ResNet's features crowd together: rows whose K-th
+    and (K+1)-th neighbors lie closer in squared distance than float32
+    resolves them (the card's error in d2) take either neighbor, and the
+    two forwards then solve on two graphs.  So the KNN sets must agree on
+    every row outside that tie band (twice the largest d2 error), and the
+    scores are compared once the CPU's float64 op takes the card's
+    neighbor sets.  On such crowded features float32 itself moves the
+    scores by more than the op phase's 1e-4 (d2 from |x|^2 + |y|^2 -
+    2 x.y, as the JAX op forms it, loses most of its digits between close
+    rows), so the bar is ENTRY_PRED_TOL, fixed from the H100 readings:
+    1.155e-4 for the card, 2.03e-4 for the port's float32 op on the CPU on
+    the card's features and graph, which is printed beside it.  The
+    free-running CPU forward's difference, the features' and the rows in
+    the band are reported."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.entry import entry
+    from graphlearninglayer_tpu_torch.ops import dense_mode, laplace_learning
+    from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+
+    knn = dense_mode.knn
+    seen = {}
+
+    def recorded(name):
+        def call(x, k, d2=None):
+            seen[name] = knn(x, k, d2=d2)
+            return seen[name]
+        return call
+
+    def with_features(model):
+        feats = []
+        model.register_forward_hook(lambda m, i, o: feats.append(o[1]))
+        return feats
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        forward, args = entry()
+        feats = with_features(args[0])
+        before = k1.fused_affinity_sym.launches
+        dense_mode.knn = recorded("card")
+        try:
+            scores = forward(*args)
+        finally:
+            dense_mode.knn = knn
+        torch.cuda.synchronize()
+        first = k1.fused_affinity_sym.launches - before
+        before = k1.fused_affinity_sym.launches
+        ms = cuda_ms(lambda: forward(*args), reps=10, warmup=1)
+        timed = k1.fused_affinity_sym.launches - before
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    forward64, args64 = entry(device="cpu", dtype=torch.float64)
+    feats64 = with_features(args64[0])
+    t0 = time.perf_counter()
+    dense_mode.knn = recorded("cpu")
+    try:
+        free = forward64(*args64)
+    finally:
+        dense_mode.knn = knn
+    cpu_s = time.perf_counter() - t0
+    f64 = feats64[0]
+    d2 = dense_mode.pairwise_dist2(f64, f64)
+    card_nbr = seen["card"][0].cpu()
+    # the CPU's float64 op, and its float32 op on the card's features, on
+    # the card's neighbor sets
+    dense_mode.knn = lambda x, k, d2=None: (card_nbr, d2.gather(1, card_nbr))
+    try:
+        y = torch.nn.functional.one_hot(args64[2], NUM_CLASSES).double()
+        pinned = laplace_learning(f64, y, tau=TAU, epsilon="auto", k=K)
+        cpu32 = laplace_learning(feats[0].cpu(), y.float(), tau=TAU,
+                                 epsilon="auto", k=K)
+    finally:
+        dense_mode.knn = knn
+    host = scores.double().cpu()
+    err = (host - pinned).abs().max().item()
+    err32 = (cpu32.double() - pinned).abs().max().item()
+    tol = ENTRY_PRED_TOL
+    err_free = (host - free).abs().max().item()
+    d2_err = (seen["card"][1].double().cpu()[:, 1:]
+              - d2.gather(1, card_nbr)[:, 1:]).abs().max().item()
+    cpu_nbr = seen["cpu"][0]
+    differ = (card_nbr.sort(1).values != cpu_nbr.sort(1).values).any(1)
+    ranked = d2.clone()
+    ranked.fill_diagonal_(-1.0)
+    near = torch.topk(ranked, K + 1, dim=1, largest=False).values
+    gap = near[:, K] - near[:, K - 1]
+    band = 2.0 * d2_err
+    emit("entry", n=N_BASE + N_BATCH, k=K, tau=TAU, model="resnet18",
+         cudnn_tf32=False, matmul_tf32=False,
+         scores_shape=list(scores.shape), forward_ms=ms,
+         k1_launches_first=first, k1_launches_timed=timed,
+         pred_max_abs_err=err, pred_tol=tol,
+         cpu_f32_pred_max_abs_err=err32, pred_max_abs_err_free=err_free,
+         feat_max_abs_err=(feats[0].double().cpu() - f64).abs().max().item(),
+         d2_max_abs_err=d2_err, tie_band=band,
+         rows_in_band=int((gap <= band).sum()),
+         rows_knn_differ=int(differ.sum()),
+         min_knn_gap=gap.min().item(), cpu_f64_forward_s=cpu_s)
+    check(bool(torch.isfinite(scores).all()), "entry() scores finite")
+    check(tuple(scores.shape) == (N_BATCH, NUM_CLASSES),
+          f"entry() scores of shape {tuple(scores.shape)}")
+    check(first == 1 and timed == 11,
+          f"K1 once a forward ({first} in one, {timed} in 11)")
+    check(bool((gap[differ] <= band).all()),
+          "the card's and the CPU's KNN sets agree outside the tie band")
+    check(err <= tol, f"entry() scores within {tol} of the CPU float64 "
+          f"forward on the card's graph ({err})")
+    return dict(k1=first)
+
+
+# what dryrun_multichip(n) gives the kernels on each rank (the same for
+# n = 1 and 2): the dense op's rows in the driver's GL steps (base + batch),
+# at d 128 and k 6 (--knn_k 6), and the driver evals' nodes, at d 128 and
+# k = every node (the eval's knn_num is min(50, nodes)); the solves' 32n
+# nodes of 8 dims at k 6 and the attack's 6n rows of 16 features at k 4
+# come from the dry run's own draws
+DRYRUN_OP_N = {1: 13, 2: 18}
+DRYRUN_EVAL_N = {1: 25, 2: 42}
+# K1 and K2 launches on each rank, by part: the driver's two runs of three
+# GL steps (12n images, batches of 4n) with an eval before and after each;
+# one KNN build in each solve; the FGSM's two op calls in dense mode
+DRYRUN_K1 = dict(driver=6, solves=0, attack=2)
+# float32 ulps of d2 (of |x_i|^2 + |x_j|^2) that K1 and its plain version
+# may differ by together at the dry run's shapes (dryrun_kernels): each
+# forms d2 = |x|^2 + |y|^2 - 2 x.y in float32 within about 4
+K1_D2_ULPS = 8
+DRYRUN_K2 = dict(driver=4, solves=2, attack=0)
+
+
+def dryrun_kernels(n: int) -> dict:
+    """K1 and K2 against their plain versions at the shapes that
+    dryrun_multichip(n) gives them on each rank.  K2 (k2_against_plain's
+    bar) on the full rows and on each rank's range [r N / n, (r + 1) N /
+    n) of the sharded builds, each range also bit for bit the full call's
+    rows: at the solves' nodes (the dry run's draws, k 6) and at the
+    driver evals' size (unit features, k = every node).  K1 on the
+    attack's first op call (the dry run's attack network on its draws, k
+    4) and at the driver's GL step size (unit features, k 6), entry by
+    entry within K1_TOL plus what K1_D2_ULPS float32 ulps of d2's terms
+    |x_i|^2 + |x_j|^2 move W = exp(-4 d2 / (eps_i eps_j)) by (4 W ulps /
+    (eps_i eps_j), W in float64).  At these few nodes eps is near 0.1, so
+    W multiplies d2's rounding by ~400: the plain version alone lies
+    4.6e-6 (6 nodes) and 8.5e-6 (12) from float64 on the attack's
+    features, above K1_TOL (set at 1,500 nodes, where eps is larger)."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.entry import attack_network, dryrun_draws
+    from graphlearninglayer_tpu_torch.ops.dense_mode import build_dense_graph
+    from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
+
+    d = dryrun_draws(n)
+    out = {"k2": {}, "k1": {}}
+    for name, x, k in (
+            ("solves", d["x_nodes"].cuda(), 6),
+            ("driver_eval", clustered_features(DRYRUN_EVAL_N[n],
+                                               SEED + n)[0].cuda(),
+             DRYRUN_EVAL_N[n])):
+        m = x.shape[0]
+        nbr, dist2 = k2.fused_knn(x, k)
+        pn, pd = k2.fused_knn_plain(x, min(k + 1, m), 2048)
+        errs = [k2_against_plain(nbr, dist2, pn, pd, 0,
+                                 f"dryrun({n}) {name}, all rows")["err"]]
+        for r in range(n):
+            r0, r1 = r * m // n, (r + 1) * m // n
+            hn, hd = k2.fused_knn(x, k, rows=(r0, r1))
+            qn, qd = k2.fused_knn_plain(x, min(k + 1, m), 2048,
+                                        rows=(r0, r1))
+            errs.append(k2_against_plain(
+                hn, hd, qn, qd, r0,
+                f"dryrun({n}) {name}, rows {r0}:{r1}")["err"])
+            check(torch.equal(hn, nbr[r0:r1]) and torch.equal(hd,
+                                                              dist2[r0:r1]),
+                  f"dryrun({n}) {name}: K2 rows {r0}:{r1} equal the full "
+                  f"call's bit for bit")
+        out["k2"][name] = dict(n=m, d=x.shape[1], k=k, max_abs_err=max(errs))
+    with torch.no_grad():
+        feats = attack_network().cuda()(torch.cat(
+            [d["base_images"], d["images"]]).cuda())[1]
+    for name, x, k in (
+            ("attack", feats, 4),
+            ("driver_step", clustered_features(DRYRUN_OP_N[n],
+                                               SEED + 2 * n)[0].cuda(), 6)):
+        g = build_dense_graph(x, k)
+        args = (x.contiguous(), g.eps, g.m_raw)
+        plain = k1.fused_affinity_sym_plain(*args)
+        diff = (k1.fused_affinity_sym(*args) - plain).double().abs()
+        x64, eps64 = x.double(), g.eps.double()
+        w64 = k1.fused_affinity_sym_plain(x64, eps64, g.m_raw.double())
+        sq = (x64 * x64).sum(1)
+        slack = (4.0 * w64 * K1_D2_ULPS * 2.0 ** -23
+                 * (sq[:, None] + sq[None, :])
+                 / (eps64[:, None] * eps64[None, :]))
+        share = (diff / (K1_TOL + slack)).max().item()
+        check(share <= 1.0, f"dryrun({n}) {name}: K1 within K1_TOL plus "
+              f"{K1_D2_ULPS} ulps of d2 of plain ({share} of the bar)")
+        out["k1"][name] = dict(
+            n=x.shape[0], d=x.shape[1], k=k, max_abs_err=diff.max().item(),
+            bar_share=share, max_slack=slack.max().item(),
+            plain_f32_err=(plain.double() - w64).abs().max().item(),
+            eps_min=g.eps.min().item())
+    return out
+
+
+def phase_dryrun() -> dict:
+    """dryrun_multichip(2) (two ranks sharing the card over gloo) and
+    dryrun_multichip(1) (a world of one over NCCL), the ranks' output
+    captured, after K1 and K2 are held to their plain versions at the
+    shapes each run gives them (dryrun_kernels): each run's seconds,
+    backend and per-rank parts, every assertion of the dry run held (it
+    raises otherwise), no "exploding gradient" line, and each rank's K1
+    and K2 launches by part exactly DRYRUN_K1 and DRYRUN_K2."""
+    from graphlearninglayer_tpu_torch.entry import dryrun_multichip
+
+    runs, launches = {}, {}
+    for n, backend in ((2, "gloo"), (1, "nccl")):
+        kernels = dryrun_kernels(n)
+        t0 = time.perf_counter()
+        ranks, text = _captured(lambda: dryrun_multichip(n))
+        seconds = time.perf_counter() - t0
+        runs[n] = dict(seconds=seconds, backend=ranks[0]["backend"],
+                       ranks=ranks, kernels=kernels)
+        check(all(r["backend"] == backend for r in ranks),
+              f"dryrun_multichip({n}) over {backend} "
+              f"({[r['backend'] for r in ranks]})")
+        check("exploding gradient" not in text,
+              f"dryrun_multichip({n}) printed no exploding gradient")
+        check(all(f"dryrun rank {r} of {n}: {backend} on cuda:0" in text
+                  for r in range(n)),
+              f"dryrun_multichip({n}): every rank printed its backend")
+        for r in ranks:
+            check(r["k1_launches"] == DRYRUN_K1,
+                  f"dryrun_multichip({n}): K1 launches {DRYRUN_K1} on rank "
+                  f"{r['rank']} ({r['k1_launches']})")
+            check(r["k2_launches"] == DRYRUN_K2,
+                  f"dryrun_multichip({n}): K2 launches {DRYRUN_K2} on rank "
+                  f"{r['rank']} ({r['k2_launches']})")
+        launches[n] = dict(k1=[r["k1_launches"] for r in ranks],
+                           k2=[r["k2_launches"] for r in ranks])
+    emit("dryrun", runs={str(n): v for n, v in runs.items()})
+    return launches
+
+
+# the sharded attack: the attack driver's cifar10 shape (FGSM_BASE_RATE 50
+# a class: 500 base + 200 batch = 700 nodes), an FGSM and an IFGSM point
+ATK_BASE, ATK_BATCH = 500, 200
+ATK_POINTS = (("fgsm", 0.05), ("ifgsm", 0.05))
+
+
+def _attack_setup(dev):
+    """The cifar10 attack's network (PreActResNet-18, random weights from
+    SEED), normalized synthetic CIFAR-geometry base and batch images on
+    ``dev``, and the config's data range."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.data import Transform, synthetic_dataset
+    from graphlearninglayer_tpu_torch.train.adversarial_driver import (
+        DATASET_CONFIGS, build_network)
+
+    cfg = DATASET_CONFIGS["cifar10"]
+    spec = synthetic_dataset(num_classes=NUM_CLASSES, image_shape=(32, 32, 3),
+                             n_train=ATK_BASE, n_test=ATK_BATCH,
+                             seed=SEED + 9)
+    tf = Transform("cifar10", "eval")
+
+    def nchw(a):
+        return torch.from_numpy(tf.normalize(a).transpose(0, 3, 1, 2)
+                                .copy()).to(dev)
+
+    net = build_network("preactresnet18", NUM_CLASSES, 3,
+                        torch.Generator().manual_seed(SEED)).to(dev).eval()
+    lab = lambda a: torch.as_tensor(a).long().to(dev)
+    return dict(net=net, base=nchw(spec.train_images),
+                base_labels=lab(spec.train_labels),
+                images=nchw(spec.test_images), labels=lab(spec.test_labels),
+                lo=torch.as_tensor(cfg.min_val).to(dev),
+                hi=torch.as_tensor(cfg.max_val).to(dev))
+
+
+def _attack_points(mesh=None) -> dict:
+    """The attack points on the card, through the single-device attack
+    (``mesh=None``) or the sharded one over ``mesh``: the first step's
+    input gradient of this rank's batch rows, a warm-up point, then each
+    point's adversarial images and predictions (on the CPU), host seconds
+    (ending in the predictions' copy), K1 launches, op calls and largest
+    Cholesky info, as numpy (a rank's CPU tensors would reach the parent
+    through shared memory that the rank's exit frees).  The caller sets
+    TF32 off and cuDNN's and PyTorch's deterministic algorithms (the dense
+    op's backward sums with index_add, atomics on the card by default)."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.attack import fgsm
+    from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    a = _attack_setup(dev)
+
+    def encode(x):
+        return a["net"](x)[1]
+
+    op_kw = dict(tau=0.0, k=K)
+    atk = fgsm.make_gl_fast_gradient_attack(encode, NUM_CLASSES, device=dev,
+                                            mesh=mesh, **op_kw)
+    _, batch = fgsm.gl_head(encode, NUM_CLASSES, op_kw, a["base"],
+                            a["base_labels"], ATK_BATCH, mesh)
+    lo, hi = batch.lo, batch.hi
+    loss = fgsm.gl_loss(encode, NUM_CLASSES, op_kw, a["base"],
+                        a["base_labels"], a["labels"], [], mesh)
+    out = {"lo": lo, "grad": fgsm.input_grad(loss,
+                                             a["images"][lo:hi]).cpu().numpy()}
+    args = (a["base"], a["base_labels"], a["images"], a["labels"])
+    atk(*args, ATK_POINTS[0][1], ATK_POINTS[0][0], a["lo"], a["hi"])
+    for kind, eps in ATK_POINTS:
+        stats = []
+        before = k1.fused_affinity_sym.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adv, pred = atk(*args, eps, kind, a["lo"], a["hi"], stats)
+        pred = pred.cpu().numpy()
+        out[kind] = dict(s=time.perf_counter() - t0, adv=adv.cpu().numpy(),
+                         pred=pred, op_calls=len(stats),
+                         k1_launches=k1.fused_affinity_sym.launches - before,
+                         chol_info=fgsm.max_chol_info(stats))
+    return out
+
+
+def _deterministic(on: bool) -> None:
+    import torch
+
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.allow_tf32 = not on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
+def _attack_rank() -> dict:
+    """A spawned rank's sharded attack points (see _attack_points) on the
+    world's mesh, with its backend."""
+    from graphlearninglayer_tpu_torch.parallel import make_mesh
+
+    _deterministic(True)
+    mesh = make_mesh(axes=("data", "graph"))
+    return dict(_attack_points(mesh), backend=mesh.backend)
+
+
+def phase_sharded_attack() -> dict:
+    """The sharded FGSM / IFGSM (make_gl_fast_gradient_attack with a mesh) at
+    the cifar10 attack's shape, beside the single-device attack on the
+    same network and images: in a world of one over NCCL the adversarial
+    images and predictions equal the single-device attack's; over two
+    ranks sharing the card (gloo) the first step's input gradient within
+    1e-4 of its largest entry and >= 99% equal predictions at each point;
+    K1 iters + 1 times a point on each rank; every Cholesky succeeds;
+    seconds a point each way."""
+    import numpy as np
+
+    from graphlearninglayer_tpu_torch.parallel import spawn_ranks
+
+    _deterministic(True)
+    try:
+        single = _attack_points()
+    finally:
+        _deterministic(False)
+    t0 = time.perf_counter()
+    one = spawn_ranks(_attack_rank, 1)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = spawn_ranks(_attack_rank, 2)
+    two_s = time.perf_counter() - t0
+    grad = single["grad"]
+    scale = float(np.abs(grad).max())
+    grad_err = {"one": float(np.abs(one[0]["grad"] - grad).max()) / scale,
+                "two": float(np.abs(np.concatenate([r["grad"] for r in two])
+                                    - grad).max()) / scale}
+    points = {}
+    for kind, eps in ATK_POINTS:
+        iters = 1 if kind == "fgsm" else max(int(5 * eps / 0.05), 0)
+        s, o, t = single[kind], one[0][kind], [r[kind] for r in two]
+        points[kind] = dict(
+            eps=eps, iters=iters, s_single=s["s"], s_world_of_one=o["s"],
+            s_two_ranks=[r["s"] for r in t],
+            k1_launches=dict(single=s["k1_launches"],
+                             world_of_one=o["k1_launches"],
+                             two_ranks=[r["k1_launches"] for r in t]),
+            chol_info=[s["chol_info"], o["chol_info"]]
+            + [r["chol_info"] for r in t],
+            one_adv_equal=bool(np.array_equal(o["adv"], s["adv"])),
+            one_pred_equal=bool(np.array_equal(o["pred"], s["pred"])),
+            two_pred_agree=float(np.mean(t[0]["pred"] == s["pred"])),
+            two_adv_max_abs=float(np.abs(t[0]["adv"] - s["adv"]).max()),
+            two_adv_differ=float(np.mean(t[0]["adv"] != s["adv"])),
+            two_ranks_same=all(np.array_equal(r["adv"], t[0]["adv"])
+                               for r in t))
+    emit("sharded_attack", n=ATK_BASE + ATK_BATCH, k=K, tau=0.0,
+         model="preactresnet18", backends=[one[0]["backend"],
+                                           two[0]["backend"]],
+         cudnn_deterministic=True, tf32=False, world_of_one_wall_s=one_s,
+         two_ranks_wall_s=two_s, grad_rel_err=grad_err,
+         rows=[r["lo"] for r in two], points=points)
+    check(one[0]["backend"] == "nccl" and two[0]["backend"] == "gloo",
+          "the world of one over NCCL, two ranks over gloo")
+    check(grad_err["one"] == 0.0, f"world of one: the first-step gradient "
+          f"equals the single-device one ({grad_err['one']})")
+    check(grad_err["two"] <= 1e-4, f"two ranks: first-step gradient within "
+          f"1e-4 of its largest entry ({grad_err['two']})")
+    for kind, p in points.items():
+        check(p["one_adv_equal"] and p["one_pred_equal"],
+              f"{kind}: the world of one's images and predictions equal "
+              f"the single-device attack's")
+        check(p["two_pred_agree"] >= 0.99, f"{kind}: two ranks' predictions "
+              f"agree on {p['two_pred_agree']} >= 0.99")
+        check(p["two_ranks_same"], f"{kind}: both ranks return one result")
+        n_op = p["iters"] + 1
+        kl = p["k1_launches"]
+        check(kl["single"] == kl["world_of_one"] == n_op
+              and kl["two_ranks"] == [n_op, n_op],
+              f"{kind}: K1 iters + 1 = {n_op} times a point on each rank "
+              f"({kl})")
+        check(max(p["chol_info"]) == 0, f"{kind}: every Cholesky succeeded")
+    return {kind: p["k1_launches"] for kind, p in points.items()}
+
+
 def main() -> int:
     import torch
 
@@ -2395,6 +2891,7 @@ def main() -> int:
     k1_stats = phase_k1()
     k2_stats = phase_k2()
     phase_op()
+    entry_launches = phase_entry()
     k1_launches, state, tf32_ms, k1_in_step_ms = phase_train()
     phase_parity()
     phase_solve()
@@ -2416,6 +2913,8 @@ def main() -> int:
     phase_supcon()
     two = phase_two_ranks()
     one = phase_world_of_one()
+    dry = phase_dryrun()
+    attack_launches = phase_sharded_attack()
     banded = phase_banded(k2_stats[EVAL_N]["ms"])
     k1_main, k2_main = k1_stats[1500], k2_stats[EVAL_N]
     kernels = [{
@@ -2446,6 +2945,12 @@ def main() -> int:
         # two ranks' driver run (per rank)
         "launches_sharded": {"world_of_one_steps": one["k1"],
                              "two_ranks": two["k1"]},
+        # the entry points: one flagship forward, the dry runs' parts per
+        # rank (two ranks over gloo, a world of one over NCCL), and the
+        # sharded attack's points (single device, world of one, per rank)
+        "launches_entry": entry_launches["k1"],
+        "launches_dryrun": {str(n): v["k1"] for n, v in dry.items()},
+        "launches_sharded_attack": attack_launches,
     }, {
         "name": "fused_knn",
         "route": "cuda",
@@ -2468,6 +2973,7 @@ def main() -> int:
         "bound_ms_rows": {r: v["bound_ms"]
                           for r, v in k2_main["rows"].items()},
         "launches_sharded": dict(one["k2"], two_ranks=two["k2"]),
+        "launches_dryrun": {str(n): v["k2"] for n, v in dry.items()},
         "banded_fallback_frac": banded["fallback_frac"],
     }, {
         "name": "fused_affinity",

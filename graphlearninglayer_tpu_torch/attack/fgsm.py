@@ -19,19 +19,29 @@ attack call, where the JAX op checks inside each backward (its
 
 The builders take ``device``: the card unless the caller passes
 ``device="cpu"``; without CUDA they raise.
+
+Given a mesh (``parallel/mesh.py``), the GL attack shards its rows over
+the mesh's ranks, the port's form of the JAX attack run on inputs placed
+on a mesh, which GSPMD shards: each rank encodes its blocks of the base and
+the batch, and steps and clamps its own batch rows; every rank returns the
+whole result.  Without one it runs on one device, where the blocks are the
+whole base and batch (``gl_head``).
 """
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops import laplace_learning, warn_exploding_grad
+from ..parallel.mesh import Mesh, RowShard
 from ..train.losses import custom_ce_loss
 from ..train.trainer import _to_device, resolve_device
 
 __all__ = ["fgsm_attack_step", "make_gl_fast_gradient_attack",
+           "make_sharded_gl_fast_gradient_attack",
            "make_mlp_fast_gradient_attack"]
 
 
@@ -55,13 +65,47 @@ def _bound(v, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
 
+def gl_head(encode: Callable, num_classes: int, op_kw: dict, base_images,
+            base_labels, n_batch: int, mesh: Mesh | None = None):
+    """The graph head of a base + batch stack of ``n_batch`` batch rows,
+    with its rows sharded over ``mesh``'s ranks (None: one device).
+
+    Returns ``(scores, batch)``.  ``batch`` is the ``RowShard`` of the
+    batch rows: this rank's are ``batch.lo:batch.hi``.  ``scores(own,
+    stats=None)`` takes those rows of the batch images and gives the
+    head's class scores of the whole batch.  The base and the batch are
+    each split over the ranks, as the JAX attack's inputs placed on a mesh
+    are: rank r encodes its block of the base and its block of the batch
+    in one call, the features of every rank are gathered with
+    ``gather_rows`` into the base + batch order, and every rank runs
+    ``laplace_learning`` on all of them with the base labels.  So every
+    rank computes the same scores, and their gradient with respect to
+    ``own`` is the unsharded gradient's rows (``gather_rows``' backward
+    takes this rank's slice).  Without a mesh a lone one stands in: the
+    blocks are the whole base and batch, and the gathers the identity."""
+    if mesh is None:
+        mesh = Mesh(("data",), np.arange(1), base_images.device)
+    base, batch = RowShard(mesh, len(base_images)), RowShard(mesh, n_batch)
+    own_base = base_images[base.lo:base.hi]
+
+    def scores(own, stats: dict | None = None):
+        feats = encode(torch.cat([own_base, own]))
+        feats = torch.cat([base.gather(feats[:len(own_base)]),
+                           batch.gather(feats[len(own_base):])])
+        y = F.one_hot(base_labels.long(), num_classes).to(feats.dtype)
+        return laplace_learning(feats, y, stats=stats, **op_kw)
+
+    return scores, batch
+
+
 def gl_scores(encode: Callable, num_classes: int, op_kw: dict, base_images,
               base_labels, images, stats: dict | None = None):
-    """The graph head's class scores of the batch rows: encode the base +
-    batch stack and run ``laplace_learning`` with the base labels."""
-    feats = encode(torch.cat([base_images, images]))
-    y = F.one_hot(base_labels.long(), num_classes).to(feats.dtype)
-    return laplace_learning(feats, y, stats=stats, **op_kw)
+    """The graph head's class scores of the batch rows on one device:
+    encode the base + batch stack and run ``laplace_learning`` with the
+    base labels."""
+    scores, _ = gl_head(encode, num_classes, op_kw, base_images,
+                        base_labels, len(images))
+    return scores(images, stats)
 
 
 def input_grad(loss_fn: Callable, data: torch.Tensor) -> torch.Tensor:
@@ -92,24 +136,29 @@ def max_chol_info(stats: list) -> int:
     return int(torch.stack(infos).max().item()) if infos else 0
 
 
-def gl_loss(encode, num_classes, op_kw, base_images, base_labels, labels,
-            stats: list) -> Callable:
-    """``loss(images)``: the custom CE of the graph head's scores.  Each op
-    call appends its ``stats`` dict to ``stats``."""
-
-    def loss(images):
+def _ce_loss(scores: Callable, labels, stats: list) -> Callable:
+    def loss(own):
         stats.append({})
-        pred = gl_scores(encode, num_classes, op_kw, base_images,
-                         base_labels, images, stats[-1])
-        return custom_ce_loss(pred, labels)
+        return custom_ce_loss(scores(own, stats[-1]), labels)
 
     return loss
+
+
+def gl_loss(encode, num_classes, op_kw, base_images, base_labels, labels,
+            stats: list, mesh: Mesh | None = None) -> Callable:
+    """``loss(own)``: the custom CE of the graph head's scores, ``own`` this
+    rank's rows of the batch images (see ``gl_head``; all of them without
+    a mesh).  Each op call appends its ``stats`` dict to ``stats``."""
+    scores, _ = gl_head(encode, num_classes, op_kw, base_images, base_labels,
+                        len(labels), mesh)
+    return _ce_loss(scores, labels, stats)
 
 
 def make_gl_fast_gradient_attack(encode: Callable, num_classes: int,
                                  tau: float = 0.0, epsilon_graph="auto",
                                  k: int = 25, solver: str = "cholesky",
-                                 grad_warn="default", device="cuda"):
+                                 grad_warn="default", device="cuda",
+                                 mesh: Mesh | None = None):
     """Attack builder for GL-head models.
 
     ``encode(images) -> features`` is the frozen eval-mode network.  Returns
@@ -119,8 +168,20 @@ def make_gl_fast_gradient_attack(encode: Callable, num_classes: int,
     module's, None disables).  ``stats``: a list to which each op call
     appends its ``stats`` dict (Cholesky info, the backward's norms), for
     the caller to read with its predictions; with None, ``attack`` checks
-    the norms itself before it returns."""
-    dev = resolve_device(device)
+    the norms itself before it returns.
+
+    ``mesh``: shard the rows over the mesh's ranks (``gl_head``).  Every
+    rank takes the whole base and batch and returns the whole result; the
+    dense op runs on the gathered features on every rank (K1 on every
+    rank, once an op call).  The sign step, the data-range clamp and the
+    epsilon-ball clamp act on the rank's own batch rows, which stay the
+    unsharded attack's rows, since their gradient is; one gather of the
+    adversarial rows at the end, and the final prediction through the op.
+    The mesh's device is the attack's, in place of ``device``.  ``encode``
+    is the frozen eval-mode network on that device: in eval mode BatchNorm
+    reads its running statistics, so no statistics cross the ranks.  The
+    norms ``attack`` checks are the same on every rank."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     op_kw = dict(tau=tau, epsilon=epsilon_graph, k=k, solver=solver)
 
     def attack(base_images, base_labels, images, labels, eps, kind,
@@ -132,25 +193,34 @@ def make_gl_fast_gradient_attack(encode: Callable, num_classes: int,
             _to_device(labels, dev)
         lo_val, hi_val = _bound(min_val, images), _bound(max_val, images)
         step = eps if kind == "fgsm" else 0.05
-        lo, hi = images - eps, images + eps
         own = stats is None
         stats = [] if own else stats
-        loss = gl_loss(encode, num_classes, op_kw, base_images, base_labels,
-                       labels, stats)
-        data = images
+        scores, batch = gl_head(encode, num_classes, op_kw, base_images,
+                                base_labels, len(labels), mesh)
+        loss = _ce_loss(scores, labels, stats)
+        data = images[batch.lo:batch.hi]
+        lo, hi = data - eps, data + eps
         for _ in range(iters):
             g = input_grad(loss, data)
             data = fgsm_attack_step(data, step, g, lo_val, hi_val)
             data = torch.clamp(data, lo, hi)
         stats.append({})
         with torch.no_grad():
-            pred = gl_scores(encode, num_classes, op_kw, base_images,
-                             base_labels, data, stats[-1])
+            pred = scores(data, stats[-1])
+            adv = batch.gather(data)
         if own:
             check_grad_norms(stats, grad_warn)
-        return data, torch.argmax(pred, dim=1)
+        return adv, torch.argmax(pred, dim=1)
 
     return attack
+
+
+def make_sharded_gl_fast_gradient_attack(encode: Callable, num_classes: int,
+                                         mesh: Mesh, **kw):
+    """:func:`make_gl_fast_gradient_attack` with its rows sharded over the
+    ranks of ``mesh``; ``kw`` as there (``tau``, ``epsilon_graph``, ``k``,
+    ``solver``, ``grad_warn``)."""
+    return make_gl_fast_gradient_attack(encode, num_classes, mesh=mesh, **kw)
 
 
 def nll(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

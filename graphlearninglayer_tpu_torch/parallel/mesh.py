@@ -32,7 +32,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 __all__ = ["Mesh", "make_mesh", "gather_rows", "all_reduce_sum",
-           "CrossRankBatchNorm2d", "convert_cross_rank_bn"]
+           "CrossRankBatchNorm2d", "convert_cross_rank_bn", "RowShard"]
 
 
 class Mesh:
@@ -143,7 +143,10 @@ class _GatherRows(torch.autograd.Function):
 
 def gather_rows(mesh: Mesh, t: torch.Tensor, sizes) -> torch.Tensor:
     """The ranks' row blocks of ``t`` (``sizes[r]`` rows on rank r)
-    concatenated in rank order, differentiable (see ``_GatherRows``)."""
+    concatenated in rank order, differentiable (see ``_GatherRows``); on
+    a lone rank, ``t`` itself."""
+    if mesh.group is None:
+        return t
     return _GatherRows.apply(t, mesh, tuple(int(s) for s in sizes))
 
 
@@ -217,6 +220,35 @@ def convert_cross_rank_bn(module: nn.Module, mesh: Mesh) -> nn.Module:
             m.__class__ = CrossRankBatchNorm2d
             m.mesh = mesh
     return module
+
+
+class RowShard:
+    """A sharded function's view of its n rows (the sharded train steps',
+    the sharded attack's): ``sizes[r]`` consecutive rows on rank r, this
+    rank's from ``lo`` to ``hi``."""
+
+    def __init__(self, mesh: Mesh, n: int):
+        self.mesh = mesh
+        self.sizes = [n // mesh.size + (r < n % mesh.size)
+                      for r in range(mesh.size)]
+        self.lo = sum(self.sizes[:mesh.rank])
+        self.hi = self.lo + self.sizes[mesh.rank]
+
+    def begin(self, model: nn.Module) -> None:
+        convert_cross_rank_bn(model, self.mesh)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return gather_rows(self.mesh, t, self.sizes)
+
+    def reduce_grads(self, model: nn.Module) -> None:
+        """Sum the ranks' parameter gradients (one all-reduce a dtype)."""
+        grads = [p.grad for p in model.parameters()]
+        for dt in {g.dtype for g in grads}:
+            same = [g for g in grads if g.dtype == dt]
+            flat = self.mesh.all_reduce(torch.cat([g.reshape(-1)
+                                                   for g in same]))
+            for g, part in zip(same, flat.split([g.numel() for g in same])):
+                g.copy_(part.view_as(g))
 
 
 def make_mesh(n_devices: int | None = None,

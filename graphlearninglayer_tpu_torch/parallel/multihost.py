@@ -147,7 +147,9 @@ def spawn_ranks(fn, world_size: int, args: tuple = (), device="cuda",
 
     ``fn`` and ``args`` must pickle (a module-level function); the
     processes start with the ``spawn`` method and import only what ``fn``
-    needs.  ``device``: "cuda" (rank r on card r % device_count) or "cpu"
+    needs.  Return numpy arrays, not tensors: torch pickles a CPU tensor
+    as a handle to shared memory, which a rank that has exited no longer
+    serves.  ``device``: "cuda" (rank r on card r % device_count) or "cpu"
     (gloo).  ``threads`` sets each rank's ``torch.set_num_threads``.  If a
     rank fails, the others are stopped and its traceback is raised here.
     """

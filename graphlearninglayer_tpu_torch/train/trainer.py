@@ -49,7 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import laplace_learning, warn_exploding_grad
-from ..parallel.mesh import Mesh, convert_cross_rank_bn, gather_rows
+from ..parallel.mesh import Mesh, RowShard
 from .losses import custom_ce_loss
 from .optim import make_optimizer
 
@@ -148,38 +148,10 @@ def _zero_grads(model: nn.Module) -> None:
             p.grad.zero_()
 
 
-class _Shard:
-    """A sharded step's view of its rows: ``sizes[r]`` consecutive rows of
-    the step's n on rank r, this rank's from ``lo``."""
-
-    def __init__(self, mesh: Mesh, n: int):
-        self.mesh = mesh
-        self.sizes = [n // mesh.size + (r < n % mesh.size)
-                      for r in range(mesh.size)]
-        self.lo = sum(self.sizes[:mesh.rank])
-        self.hi = self.lo + self.sizes[mesh.rank]
-
-    def begin(self, model: nn.Module) -> None:
-        convert_cross_rank_bn(model, self.mesh)
-
-    def gather(self, t: torch.Tensor) -> torch.Tensor:
-        return gather_rows(self.mesh, t, self.sizes)
-
-    def reduce_grads(self, model: nn.Module) -> None:
-        """Sum the ranks' parameter gradients (one all-reduce a dtype)."""
-        grads = [p.grad for p in model.parameters()]
-        for dt in {g.dtype for g in grads}:
-            same = [g for g in grads if g.dtype == dt]
-            flat = self.mesh.all_reduce(torch.cat([g.reshape(-1)
-                                                   for g in same]))
-            for g, part in zip(same, flat.split([g.numel() for g in same])):
-                g.copy_(part.view_as(g))
-
-
 def _gl_update(state: TrainState, x: torch.Tensor, base_labels,
                labels: torch.Tensor, num_classes: int, op_kw: dict,
                score_type: str, dev: torch.device,
-               shard: _Shard | None = None):
+               shard: RowShard | None = None):
     """The GL step's body on a normalized NCHW batch ``x`` (base rows
     first): encode, the graph head with base labels, CE on the batch
     labels, one optimizer update.  Returns ``(state, metrics, scores)``.
@@ -222,7 +194,7 @@ def _gl_update(state: TrainState, x: torch.Tensor, base_labels,
 
 
 def _mlp_update(state: TrainState, x: torch.Tensor, labels: torch.Tensor,
-                shard: _Shard | None = None):
+                shard: RowShard | None = None):
     """The MLP step's body on a normalized NCHW batch ``x``: the aux
     classifier's CE and one optimizer update; returns
     ``(state, metrics)``.  With ``shard``, ``x`` holds this rank's rows
@@ -361,7 +333,7 @@ def make_sharded_gl_train_step(num_classes: int, mesh: Mesh, tau: float,
     op_kw = dict(tau=tau, epsilon=epsilon, k=k, solver=solver)
 
     def step(state: TrainState, base_images, base_labels, images, labels):
-        shard = _Shard(mesh, len(base_images) + len(images))
+        shard = RowShard(mesh, len(base_images) + len(images))
         x = torch.cat([_to_device(base_images, dev),
                        _to_device(images, dev)])[shard.lo:shard.hi]
         return _gl_update(state, _device_normalize(x, norm), base_labels,
@@ -378,7 +350,7 @@ def make_sharded_mlp_train_step(mesh: Mesh, norm=None) -> Callable:
     dev = mesh.device
 
     def step(state: TrainState, images, labels):
-        shard = _Shard(mesh, len(images))
+        shard = RowShard(mesh, len(images))
         x = _to_device(images, dev)[shard.lo:shard.hi]
         return _mlp_update(state, _device_normalize(x, norm),
                            _to_device(labels, dev).long(), shard)
@@ -402,7 +374,7 @@ def make_sharded_gl_train_step_from_data(num_classes: int, image_shape,
 
     def step(state: TrainState, data, base_idx, base_labels, idx, labels):
         rows = torch.cat([_to_device(base_idx, dev), _to_device(idx, dev)])
-        shard = _Shard(mesh, len(rows))
+        shard = RowShard(mesh, len(rows))
         images = _gather_rows(data, rows, image_shape, aug, generator)
         return _gl_update(state,
                           _device_normalize(images[shard.lo:shard.hi], norm),
@@ -421,7 +393,7 @@ def make_sharded_mlp_train_step_from_data(image_shape, mesh: Mesh,
 
     def step(state: TrainState, data, idx, labels):
         idx = _to_device(idx, dev)
-        shard = _Shard(mesh, len(idx))
+        shard = RowShard(mesh, len(idx))
         images = _gather_rows(data, idx, image_shape, aug, generator)
         return _mlp_update(state,
                            _device_normalize(images[shard.lo:shard.hi], norm),

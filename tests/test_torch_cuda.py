@@ -731,3 +731,69 @@ def test_edge_sharded_eval_on_card_launches_k2_once(nccl_world_of_one,
     perm = cache.shard_perm
     edge_sharded_transductive_laplace(mesh, x, y, knn_num=50, cache=cache)
     assert cache.shard_perm is perm and k2.fused_knn.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_entry_on_card_launches_k1_once(cuda_device):
+    """entry() at the flagship shape (ResNet-18, 250 + 1250 nodes, k=25):
+    K1 once a forward, finite (1250, 10) scores."""
+    from graphlearninglayer_tpu_torch.entry import entry
+
+    forward, args = entry()
+    assert args[1].device.type == "cuda"
+    before = k1.fused_affinity_sym.launches
+    scores = forward(*args)
+    torch.cuda.synchronize()
+    assert k1.fused_affinity_sym.launches == before + 1
+    assert scores.shape == (1250, 10)
+    assert bool(torch.isfinite(scores).all())
+
+
+@pytest.mark.cuda
+def test_sharded_attack_world_of_one_equals_single_device(nccl_world_of_one):
+    """The sharded FGSM and IFGSM in a world of one over NCCL give the
+    single-device attack's images and predictions exactly (TF32 off, cuDNN
+    and PyTorch deterministic: the dense op's backward sums with index_add,
+    atomics on the card otherwise), K1 iters + 1 times a point, every
+    Cholesky factored.  The dry run's attack network, 100 base + 60 batch
+    32x32x3 images, tau 0, k 25."""
+    from graphlearninglayer_tpu_torch.attack import (
+        make_gl_fast_gradient_attack, make_sharded_gl_fast_gradient_attack)
+    from graphlearninglayer_tpu_torch.attack.fgsm import max_chol_info
+    from graphlearninglayer_tpu_torch.entry import SmallEncoder
+    from graphlearninglayer_tpu_torch.models import init_weights
+
+    model = SmallEncoder(10, in_channel=3)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+
+    def encode(x):
+        return model(x)[1]
+
+    gen = torch.Generator().manual_seed(1)
+    base = torch.randn(100, 3, 32, 32, generator=gen).cuda()
+    images = torch.randn(60, 3, 32, 32, generator=gen).cuda()
+    base_labels = (torch.arange(100) % 10).cuda()
+    labels = torch.randint(0, 10, (60,), generator=gen).cuda()
+    single = make_gl_fast_gradient_attack(encode, 10, k=25)
+    sharded = make_sharded_gl_fast_gradient_attack(encode, 10,
+                                                   nccl_world_of_one, k=25)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for kind, eps, iters in (("fgsm", 0.1, 1), ("ifgsm", 0.1, 10)):
+            args = (base, base_labels, images, labels, eps, kind, -3.0, 3.0)
+            stats_a, stats_b = [], []
+            want, want_pred = single(*args, stats_a)
+            before = k1.fused_affinity_sym.launches
+            got, got_pred = sharded(*args, stats_b)
+            torch.cuda.synchronize()
+            assert k1.fused_affinity_sym.launches == before + iters + 1
+            assert max_chol_info(stats_a) == max_chol_info(stats_b) == 0
+            assert torch.equal(got, want) and torch.equal(got_pred, want_pred)
+            assert (got - images).abs().max().item() > 0.09
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.allow_tf32 = True

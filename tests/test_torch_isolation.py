@@ -59,7 +59,9 @@ def test_port_imports_no_jax():
                 # the banded KNN and the multi-device package
                 "ops/knn_banded", "parallel/__init__", "parallel/mesh",
                 "parallel/multihost", "parallel/graph_shard",
-                "parallel/edge_shard"):
+                "parallel/edge_shard",
+                # the entry points
+                "entry"):
         assert f"graphlearninglayer_tpu_torch/{mod}.py" in names, mod
     assert len(files) >= 40
     for path in files:
@@ -183,3 +185,36 @@ def test_multidevice_entry_points_raise_without_cuda(no_cuda, tmp_path,
                        "--mesh", "2"])
     assert make_mesh(1, device="cpu").device.type == "cpu"
     assert not initialize_multihost()        # no launcher: one process
+
+
+def test_entry_and_dryrun_raise_without_cuda(no_cuda, tmp_path, monkeypatch):
+    """entry(), its CLI, dryrun_multichip(n) and the sharded attack run on
+    the card unless given the CPU, and raise without CUDA before any
+    work (the dry run before it spawns a rank)."""
+    from graphlearninglayer_tpu_torch import entry
+    from graphlearninglayer_tpu_torch.attack import (
+        make_sharded_gl_fast_gradient_attack)
+    from graphlearninglayer_tpu_torch.parallel import Mesh, make_mesh
+
+    monkeypatch.chdir(tmp_path)
+    spawned = []
+    monkeypatch.setattr("graphlearninglayer_tpu_torch.parallel.spawn_ranks",
+                        lambda *a, **k: spawned.append(a))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="--dev cpu"):
+        entry.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry.dryrun_multichip(2)
+    assert not spawned
+    card_mesh = Mesh(("data",), np.arange(1), "cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_sharded_gl_fast_gradient_attack(None, 3, card_mesh)
+    # the CPU is used only when asked for
+    forward, (model, images, _) = entry.entry(device="cpu", base_n=10,
+                                              batch_n=10)
+    assert images.device.type == "cpu" and callable(forward)
+    entry.dryrun_multichip(2, device="cpu")
+    assert len(spawned) == 1
+    assert callable(make_sharded_gl_fast_gradient_attack(
+        None, 3, make_mesh(1, device="cpu")))

@@ -191,3 +191,45 @@ def parallel_worker(cases: dict) -> dict:
                                   route=stats["route"])
             out[name] = res
     return out
+
+
+def attack_case_run(case: dict, mesh=None) -> dict:
+    """The FGSM and IFGSM attacks of ``case`` through the linear-tanh
+    encoder of tests/test_torch_attacks.py, sharded over ``mesh`` or (None)
+    unsharded on the CPU, with the first step's input gradient: numpy
+    adversarial images, predictions and gradient rows (this rank's, from
+    row ``lo`` of the batch, where sharded)."""
+    from graphlearninglayer_tpu_torch.attack import fgsm
+
+    t = {k: torch.as_tensor(case[k]) for k in ("base", "base_labels",
+                                              "images", "labels")}
+    w = torch.as_tensor(case["w"])
+
+    def encode(x):
+        return l2_normalize(torch.tanh(x @ w))
+
+    op_kw = dict(tau=0.0, k=case["k"])
+    make = fgsm.make_gl_fast_gradient_attack(encode, case["l"], device="cpu",
+                                             mesh=mesh, **op_kw)
+    _, batch = fgsm.gl_head(encode, case["l"], op_kw, t["base"],
+                            t["base_labels"], len(case["labels"]), mesh)
+    lo, hi = batch.lo, batch.hi
+    loss = fgsm.gl_loss(encode, case["l"], op_kw, t["base"],
+                        t["base_labels"], t["labels"], [], mesh)
+    out = {"lo": lo, "grad": fgsm.input_grad(loss,
+                                             t["images"][lo:hi]).numpy()}
+    for kind in ("fgsm", "ifgsm"):
+        stats = []
+        adv, pred = make(t["base"], t["base_labels"], t["images"],
+                         t["labels"], case["eps"], kind, -10.0, 10.0, stats)
+        out[kind] = dict(adv=adv.numpy(), pred=pred.numpy(),
+                         op_calls=len(stats))
+    return out
+
+
+def attack_worker(case: dict) -> dict:
+    """The sharded attack cases on the world's mesh (every rank)."""
+    from graphlearninglayer_tpu_torch.parallel import make_mesh
+
+    return attack_case_run(case, make_mesh(axes=("data", "graph"),
+                                           device="cpu"))
