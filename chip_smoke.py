@@ -49,7 +49,10 @@ each:
           with float32 parameters and TF32 convolutions (cuDNN's default),
           then 5 in bf16 (encoder under autocast, TF32 off), and one eval
           step on held-out images: the main path, across which K1's launch
-          count is read;
+          count is read; then (knn_select) the exact KNN's selection by
+          (d2, index) and its two routes (a stable sort, a repaired
+          top-k) against a bare torch.topk, device ms at the step's
+          1,500 x 1,500, at 2,048 x 8,192 and at a 2,048 x 60,250 panel;
   profile torch.profiler over 3 more warm float32 steps (TF32 off): device
           time by kernel and the device's busy share, and K1's in-step
           device time per launch (its group must read above zero);
@@ -61,6 +64,18 @@ each:
           of one more solve;
   solve_parity  the same solve at 10,250 nodes on the card (float32)
           against the port on the CPU (float64);
+  ell     kernel P3 (ops/kernels/ell_spmm.py, the ELL gather SpMM) on the
+          solve's graph (60,250 nodes, k=50) in the symmetric ELL form of
+          mode='ell': its slots S, padding and overflow; for l = 10 and
+          100 the kernel against its plain version (1e-6 max_i
+          sum_s |val[i, s]| max |x| an entry), its device ms per matvec
+          (100 launches, L2 warm; 20 flushed) beside the plain version's,
+          a torch.sparse CSR product's (of the slots in use) and
+          bsr_spmm's on the same graph, and the bound (val's bytes, and
+          nbr's on the slots in use only); then (ell_solve) transductive_laplace(mode='ell'),
+          two warm-up and three timed solves: converged, >= 99.9% equal
+          argmax against mode='bsr', P3 exactly CG iterations + 2 times a
+          solve;
   transductive_eval  the eval main path: test_gl_transductive with the
           trained float32 state over 250 + 50,000 + 10,000 synthetic
           images, across which K2's launch count is read;
@@ -69,6 +84,13 @@ each:
           of the port's knn, at n=300, and with a fixed eps: max |diff|
           <= 1e-6, device times as in k1 and the reckoned bound (no path
           calls K3);
+  probes  kernels P1 (a bitonic row sort, ascending and descending, and a
+          scale gated on the array's max) and P2 (take_along_axis) at the
+          shapes of the TPU probes they replace, which no path calls: each
+          case once with its count read, then equal to its plain version
+          (torch.sort(stable=True), torch.gather), its device ms beside
+          the plain version's, torch.topk's / torch.take_along_dim's and
+          the bound;
   op_edge laplace_learning in edge mode with the Cholesky and then the CG
           solver, forward + backward on the card at the op's shape, against
           the port's float64 CPU result and against dense mode on the card,
@@ -145,7 +167,7 @@ each:
   parallel_solve  in that group, the edge- and the row-sharded solves at
           60,250 nodes (k=50, tau 1e-8) against the single-device solve:
           residual <= 1e-10, >= 99.9% equal argmax, K2 once a build, s a
-          solve;
+          solve, P3 CG iterations + 2 times a row-sharded solve;
   dryrun  dryrun_multichip(2), two spawned ranks sharing the card over
           gloo, and dryrun_multichip(1), a world of one over NCCL: the
           driver on the mesh twice (edge-sharded evals, then
@@ -153,7 +175,8 @@ each:
           each other, one sharded FGSM; each run's seconds, its ranks'
           parts, no "exploding gradient" in the ranks' output, and on
           every rank K1 6 times in the driver and twice in the FGSM, K2 4
-          times in the driver and twice in the solves; before each run K1
+          times in the driver and twice in the solves, P3 the row-sharded
+          solve's CG iterations + 2 times; before each run K1
           and K2 against their plain versions at the shapes it gives them
           (K2 on every rank's row range);
   sharded_attack  make_sharded_gl_fast_gradient_attack at the cifar10
@@ -250,6 +273,18 @@ print("RANK_RESULT " + json.dumps(dict(
     epoch_s=rec["epoch_s"], k1_launches=k1.fused_affinity_sym.launches,
     k2_launches=k2.fused_knn.launches, k2_rows=rows)), flush=True)
 """
+# every CUDA source of the port, one nvcc each, started together
+KERNEL_SOURCES = ("affinity_sym", "knn_topk", "ell_spmm", "row_sort",
+                  "take_along")
+# P3 (the ELL gather SpMM) against its plain version: per entry at most
+# P3_REL_TOL max_i sum_s |val[i, s]| max |x| (another summation order)
+P3_REL_TOL = 1e-6
+P3_CLASSES = (10, 100)     # CIFAR-10's and CIFAR-100's l
+# P1 and P2 at the probes' shapes: P1's 256 x 512 block (and 64 x 1,024),
+# P2's six (m, n, axis) cases
+P1_SHAPES = ((256, 512), (64, 1024))
+P2_CASES = ((256, 128, 0), (8192, 128, 0), (128, 128, 1), (128, 1024, 1),
+            (8, 8192, 1), (65536, 128, 0))
 # H100 SXM peaks from NVIDIA's data sheet, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -437,7 +472,7 @@ def phase_build():
     from graphlearninglayer_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
-    built = _build.build("affinity_sym", "knn_topk")
+    built = _build.build(*KERNEL_SOURCES)
     wall = time.perf_counter() - t0
     for name, result in built.items():
         seconds, log = result if result is not None else (None, "")
@@ -920,8 +955,56 @@ def phase_train():
     check(tuple(pred.shape) == (N_BATCH,), "eval prediction shape")
     emit("eval", base=N_BASE, test=N_BATCH, acc=float(acc),
          chance=1.0 / NUM_CLASSES)
+    emit("knn_select", **knn_selection_times())
     in_step_ms = phase_profile(f32_state, f32_step, data, rng)
     return launches, f32_state, tf32_ms, in_step_ms
+
+
+def knn_selection_times() -> dict:
+    """The exact KNN's selection by (d2, index), ``smallest_k``, device ms
+    beside its two routes, a stable torch.sort of each row (sliced) and a
+    torch.topk whose ties are repaired, and beside a bare torch.topk of
+    the float32 d2 (the selection before the tie rule, which leaves the
+    order of equal distances open): at the train step's shape (1,500 x
+    1,500, k = 25), at a row width above smallest_k's SORT_COLS (2,048 x
+    8,192, k = 50) and at one panel of the 60,250-node plain route (2,048
+    x 60,250, k = 50).  Both routes' lists must equal the stable sort's.
+    Median ms of CUDA events around each call (``cuda_ms``)."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
+    from graphlearninglayer_tpu_torch.ops.knn import pairwise_dist2
+    from graphlearninglayer_tpu_torch.ops.precision import full_f32
+
+    out = {}
+    for rows, n, k in ((N_BASE + N_BATCH, N_BASE + N_BATCH, K),
+                       (2048, 2 * k2.SORT_COLS, EVAL_K),
+                       (2048, EVAL_N, EVAL_K)):
+        x = clustered_features(n, SEED + 7)[0].cuda()
+        with full_f32():
+            d2 = pairwise_dist2(x[:rows], x)
+        own = torch.arange(rows, device="cuda")
+        d2[own, own] = -1.0
+        tie = torch.arange(n, device="cuda")
+        ways = {
+            "smallest_k": lambda: k2.smallest_k(d2, k),
+            "by_sort": lambda: k2.select_by_sort(d2, k, tie),
+            "by_topk": lambda: k2.select_by_topk(d2, k, tie),
+            "topk_f32": lambda: torch.topk(d2, k, dim=1, largest=False,
+                                           sorted=True)}
+        want = torch.sort(d2, dim=1, stable=True).indices[:, :k]
+        for name in ("smallest_k", "by_topk"):
+            got = ways[name]()
+            got = got[1] if name == "smallest_k" else got
+            check(torch.equal(got, want), f"{name} equals the stable sort's "
+                  f"lists at {rows} x {n}")
+        # CUDA events around each call (the repaired top-k waits on one
+        # host sync, so calls cannot be queued back to back)
+        out[f"{rows}x{n}"] = dict(k=k, **{f"{name}_ms": cuda_ms(fn, reps=20)
+                                          for name, fn in ways.items()})
+        del x, d2
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_solve():
@@ -1003,6 +1086,234 @@ def phase_solve_parity():
          cpu_f64_s=cpu_s)
     check(agree >= 0.999, f"card/CPU argmax agreement {agree} >= 0.999")
     check(rel <= 1e-3, f"card/CPU max |pred diff| {rel} <= 1e-3 max |pred|")
+
+
+def p3_bound_ms(m: int, n: int, s: int, used: int, l: int
+                ) -> tuple[float, str]:
+    """Least time for P3's work on this graph: val read once, m S 4 bytes;
+    nbr (int64) only on the ``used`` slots (val != 0: a zero slot adds
+    nothing, so its index is never needed), 8 bytes each; x read once,
+    n l 4; out written once, m l 4; 2 l float32 operations a used slot."""
+    nbytes = m * s * 4 + used * 8 + n * l * 4 + m * l * 4
+    ops = 2 * used * l
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def phase_ell() -> dict:
+    """P3 on the eval's symmetric ELL at the solve phase's geometry (60,250
+    clustered nodes, d=128, k=50, tau 1e-8; the graph built once): S, the
+    overflow and one matvec's bound; for l = 10 and 100 the kernel against
+    its plain version (P3_REL_TOL), its device ms per matvec over 100
+    back-to-back launches (the iterate warm in L2), the plain version's,
+    one torch.sparse CSR product's of the slots in use (the library call)
+    and bsr_spmm's on the same graph (the port's default matvec: a
+    yardstick, not a library call).  Then transductive_laplace(mode='ell'): s a solve (mean of 3
+    after 2 warm-ups), CG iterations, residual <= 1e-10, >= 99.9% equal
+    argmax against mode='bsr' on the same features, and P3 launched
+    exactly CG iterations + 2 times a solve (the right-hand side, the
+    start residual, one a CG step).  Returns the main numbers."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.ops import (EvalGraphCache,
+                                                  one_hot_encode,
+                                                  transductive_laplace)
+    from graphlearninglayer_tpu_torch.ops import graph as tg
+    from graphlearninglayer_tpu_torch.ops.bsr import (bsr_plan_from_perm,
+                                                      bsr_spmm,
+                                                      build_bsr_mat)
+    from graphlearninglayer_tpu_torch.ops.kernels import ell_spmm as p3
+
+    dev = torch.device("cuda")
+    x, lab = clustered_features(EVAL_N, SEED + 1)
+    x = x.to(dev)
+    y = one_hot_encode(torch.as_tensor(lab[:EVAL_BASE]), NUM_CLASSES).to(dev)
+    n = EVAL_N
+    # the graph once, and the ELL structure as mode='ell' builds it
+    g = tg.build_graph(x, EVAL_K, "auto", tiled=True)
+    w, _ = tg.edge_weights(g)
+    cap = min(tg.ell_cap(int(tg.max_in_degree(g))), 512)
+    ovf = int(tg.overflow_count(g, cap))
+    ovf_cap = 0 if ovf == 0 else -(-ovf // 4096) * 4096
+    ell = tg.build_sym_ell(g, w, cap, ovf_cap)
+    s_slots = ell.nbr.shape[1]
+    in_use = ell.val != 0
+    used = int(in_use.sum())
+    # the BSR tiles of the same graph, as the default solve plans them
+    cache = EvalGraphCache()
+    bsr_pred, bsr_iters, bsr_err = transductive_laplace(
+        x, y, knn_num=EVAL_K, tau=EVAL_TAU, return_info=True, cache=cache)
+    check(cache.perm is not None, "the bsr solve tiled the graph")
+    plan = bsr_plan_from_perm(g, cache.perm, 256)
+    mat = build_bsr_mat(plan, tg.edge_weights(plan.gp)[0], 256, cache.smax,
+                        cache.ovf_cap)
+    # the library's CSR holds the slots in use only (no stored zeros)
+    csr = torch.sparse_csr_tensor(
+        torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                   in_use.sum(1).cumsum(0)]),
+        ell.nbr[in_use], ell.val[in_use], size=(n, n))
+    per_l = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for l in P3_CLASSES:
+        xl = torch.randn((n, l), generator=gen, device=dev)
+        got = p3.ell_gather_spmm(ell.nbr, ell.val, xl)
+        want = p3.ell_gather_spmm_plain(ell.nbr, ell.val, xl)
+        lib = torch.sparse.mm(csr, xl)
+        full = tg.ell_spmm(ell, xl)
+        bsr = bsr_spmm(mat, xl[plan.perm], n)[plan.inv]
+        torch.cuda.synchronize()
+        bar = (P3_REL_TOL * ell.val.abs().sum(1).max().item()
+               * xl.abs().max().item())
+        err = (got - want).abs().max().item()
+        check(err <= bar, f"P3 within {bar} of plain at l={l} ({err})")
+        bound_ms, bound_by = p3_bound_ms(n, n, s_slots, used, l)
+        ms = device_ms(lambda: p3.ell_gather_spmm(ell.nbr, ell.val, xl))
+        per_l[l] = dict(
+            max_abs_err=err, tol=bar, ms=ms,
+            ms_l2_flushed=device_ms(lambda: p3.ell_gather_spmm(
+                ell.nbr, ell.val, xl), reps=20, flush=True),
+            plain_ms=cuda_ms(lambda: p3.ell_gather_spmm_plain(
+                ell.nbr, ell.val, xl), reps=3, warmup=1),
+            library_ms=device_ms(lambda: torch.sparse.mm(csr, xl), reps=20),
+            library="torch.sparse.mm of the ELL slots in use as a CSR "
+                    "matrix",
+            library_max_abs_err=(lib - want).abs().max().item(),
+            bsr_spmm_ms=device_ms(lambda: bsr_spmm(mat, xl, n), reps=20),
+            bsr_spmm="ops/bsr.py::bsr_spmm on the same graph's tiles: the "
+                     "port's default matvec, a yardstick, not a library call",
+            bsr_vs_ell_spmm_max_abs=(bsr - full).abs().max().item(),
+            bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms)
+        del xl, got, want, lib, full, bsr
+    bytes_10 = n * s_slots * 4 + used * 8 + 2 * n * P3_CLASSES[0] * 4
+    emit("ell", n=n, d=x.shape[1], k=EVAL_K, cap=cap, slots=s_slots,
+         used_slots=used, padding_share=1.0 - used / (n * s_slots),
+         overflow_edges=ovf, ovf_cap=ovf_cap, matvec_bytes_l10=bytes_10,
+         per_l=per_l)
+    del csr, mat, plan
+    torch.cuda.empty_cache()
+
+    runs = []
+    p3.ell_gather_spmm.launches = 0
+    for _ in range(5):
+        before = p3.ell_gather_spmm.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred, iters, err = transductive_laplace(
+            x, y, knn_num=EVAL_K, tau=EVAL_TAU, mode="ell", return_info=True)
+        torch.cuda.synchronize()
+        runs.append(dict(s=time.perf_counter() - t0, cg_iters=iters,
+                         cg_err=float(err),
+                         p3_launches=p3.ell_gather_spmm.launches - before))
+    launches = p3.ell_gather_spmm.launches
+    agree = (pred.argmax(1) == bsr_pred.argmax(1)).float().mean().item()
+    s_per_solve = statistics.mean(r["s"] for r in runs[2:])
+    emit("ell_solve", n=n, k=EVAL_K, tau=EVAL_TAU, warmups=2, runs=runs,
+         s_per_solve=s_per_solve, argmax_agreement_bsr=agree,
+         bsr_cg_iters=bsr_iters, bsr_cg_err=float(bsr_err),
+         p3_launches=launches)
+    check(all(r["cg_err"] <= 1e-10 for r in runs),
+          f"the ELL solve converged ({runs})")
+    check(agree >= 0.999, f"ELL and BSR solves agree on {agree} >= 0.999 "
+          f"of the argmax")
+    check(all(r["p3_launches"] == r["cg_iters"] + 2 for r in runs),
+          "P3 launched CG iterations + 2 times a solve")
+    return dict(per_l=per_l, launches=launches, slots=s_slots,
+                used_slots=used)
+
+
+def phase_probes() -> dict:
+    """P1 and P2, the counterparts of the TPU probes, which no path calls.
+    The probe run: P1's sort ascending and descending (the probe's sort and
+    full lax.top_k) at each of P1_SHAPES and its gated scale on a block
+    with a positive max and on one without, P2 at each of P2_CASES, each
+    once, with the counts set to 0 before and read after.  Then each
+    output equal to its plain version's on the same input, and device ms
+    (100 back-to-back launches) beside the plain version's, one library
+    call's (torch.topk over the whole row, whose order among equal values
+    is open; torch.take_along_dim) and the bound."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.ops.kernels import row_sort as p1
+    from graphlearninglayer_tpu_torch.ops.kernels import take_along as p2
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    blocks = {(q, m): torch.randn((q, m), generator=gen, device="cuda")
+              for q, m in P1_SHAPES}
+    signs = {"positive": blocks[P1_SHAPES[0]],
+             "negative": -blocks[P1_SHAPES[0]].abs()}
+    gathers = {}
+    for m, n, axis in P2_CASES:
+        gathers[(m, n, axis)] = (
+            torch.randn((m, n), generator=gen, device="cuda"),
+            torch.randint(0, m if axis == 0 else n, (m, n), generator=gen,
+                          device="cuda"))
+    p1.row_sort.launches = p1.scale_if_max_positive.launches = 0
+    p2.take_along.launches = 0
+    sorted_out = {(shape, desc): p1.row_sort(x, desc)
+                  for shape, x in blocks.items() for desc in (False, True)}
+    scaled = {name: p1.scale_if_max_positive(x) for name, x in signs.items()}
+    taken = {case: p2.take_along(x, idx, case[2])
+             for case, (x, idx) in gathers.items()}
+    torch.cuda.synchronize()
+    launches = dict(row_sort=p1.row_sort.launches,
+                    scale_if_max_positive=p1.scale_if_max_positive.launches,
+                    take_along=p2.take_along.launches)
+    check(launches == dict(row_sort=2 * len(P1_SHAPES),
+                           scale_if_max_positive=len(signs),
+                           take_along=len(P2_CASES)),
+          f"each probe case launched its kernel once ({launches})")
+
+    def bound(nbytes):
+        return 1e3 * nbytes / PEAK_BYTES_PER_S
+
+    sorts = {}
+    for (shape, desc), (vals, idx) in sorted_out.items():
+        x = blocks[shape]
+        pv, pi = p1.row_sort_plain(x, desc)
+        check(torch.equal(vals, pv) and torch.equal(idx, pi),
+              f"P1 row sort equals torch.sort(stable) at {shape}, "
+              f"descending={desc}")
+        q, m = shape
+        sorts[f"{q}x{m}{'_desc' if desc else ''}"] = dict(
+            max_abs_err=(vals - pv).abs().max().item(),
+            ms=device_ms(lambda: p1.row_sort(x, desc)),
+            plain_ms=device_ms(lambda: p1.row_sort_plain(x, desc)),
+            library_ms=device_ms(lambda: torch.topk(x, m, dim=1,
+                                                    largest=not desc)),
+            bound_ms=bound(16 * q * m), bound_by="bytes")
+    gated = {}
+    for name, out in scaled.items():
+        x = signs[name]
+        check(torch.equal(out, p1.scale_if_max_positive_plain(x)),
+              f"P1 gated scale equals plain ({name} max)")
+        gated[name] = dict(
+            ms=device_ms(lambda: p1.scale_if_max_positive(x)),
+            plain_ms=device_ms(lambda: p1.scale_if_max_positive_plain(x)),
+            bound_ms=bound(8 * x.numel()), bound_by="bytes")
+    takes = {}
+    for case, out in taken.items():
+        (x, idx), (m, n, axis) = gathers[case], case
+        want = p2.take_along_plain(x, idx, axis)
+        check(torch.equal(out, want), f"P2 equals torch.gather at {case}")
+        takes[f"{m}x{n}_axis{axis}"] = dict(
+            max_abs_err=(out - want).abs().max().item(),
+            ms=device_ms(lambda: p2.take_along(x, idx, axis)),
+            plain_ms=device_ms(lambda: p2.take_along_plain(x, idx, axis)),
+            library_ms=device_ms(lambda: torch.take_along_dim(x, idx, axis)),
+            bound_ms=bound(16 * m * n), bound_by="bytes")
+    emit("probes", launches=launches, row_sort=sorts,
+         scale_if_max_positive=gated, take_along=takes,
+         library="torch.topk over the whole row (P1); "
+                 "torch.take_along_dim (P2)")
+    return dict(launches=launches,
+                max_abs_err=dict(
+                    row_sort=max(v["max_abs_err"] for v in sorts.values()),
+                    take_along=max(v["max_abs_err"]
+                                   for v in takes.values())),
+                row_sort=sorts["256x512"],
+                row_sort_desc=sorts["256x512_desc"],
+                scale=gated["positive"], take_along=takes["65536x128_axis0"])
 
 
 def phase_transductive_eval(state):
@@ -2249,6 +2560,7 @@ def phase_world_of_one() -> dict:
     from graphlearninglayer_tpu_torch.ops import (one_hot_encode,
                                                   transductive_laplace)
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels import ell_spmm as p3
     from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
     from graphlearninglayer_tpu_torch.parallel import (
         edge_sharded_transductive_laplace, global_mesh,
@@ -2322,14 +2634,16 @@ def phase_world_of_one() -> dict:
             runs = []
             for _ in range(2):
                 before = k2.fused_knn.launches
+                p3_before = p3.ell_gather_spmm.launches
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 pred, iters, err = fn(graph_mesh, x, y, knn_num=EVAL_K,
                                       tau=EVAL_TAU, return_info=True)
                 torch.cuda.synchronize()
-                runs.append(dict(s=time.perf_counter() - t0, cg_iters=iters,
-                                 cg_err=err,
-                                 k2_launches=k2.fused_knn.launches - before))
+                runs.append(dict(
+                    s=time.perf_counter() - t0, cg_iters=iters, cg_err=err,
+                    k2_launches=k2.fused_knn.launches - before,
+                    p3_launches=p3.ell_gather_spmm.launches - p3_before))
             agree = (pred.argmax(1) == want.argmax(1)).float().mean().item()
             solves[name] = dict(runs=runs, argmax_agreement=agree,
                                 s_per_solve=runs[-1]["s"])
@@ -2338,12 +2652,20 @@ def phase_world_of_one() -> dict:
             check(agree >= 0.999, f"{name} argmax agreement {agree} >= 0.999")
             check(all(r["k2_launches"] == 1 for r in runs),
                   f"{name}: K2 once a build")
+            # the row-sharded CG's matvec is P3 on the rank's rows: the
+            # right-hand side, the start residual and one a CG step; the
+            # edge-sharded halo CG runs none
+            check(all(r["p3_launches"] == (r["cg_iters"] + 2
+                                           if name == "row_sharded" else 0)
+                      for r in runs), f"{name}: P3 launches ({runs})")
         emit("parallel_solve", world=1, backend="nccl", n=EVAL_N, k=EVAL_K,
              tau=EVAL_TAU, single_cg_iters=it_w, single_cg_err=err_w,
              **solves)
         return dict(k1=k1_sharded,
                     k2={n: sum(r["k2_launches"] for r in v["runs"])
-                        for n, v in solves.items()})
+                        for n, v in solves.items()},
+                    p3=sum(r["p3_launches"]
+                           for r in solves["row_sharded"]["runs"]))
     finally:
         dist.destroy_process_group()
 
@@ -2586,6 +2908,14 @@ K1_D2_ULPS = 8
 DRYRUN_K2 = dict(driver=4, solves=2, attack=0)
 
 
+def dryrun_p3(rank: dict) -> dict:
+    """P3 launches on a dry-run rank, by part: none in the driver (its evals
+    are edge-sharded or single-device BSR / sorted) or the FGSM; in the
+    solves the row-sharded CG's, its iterations + 2 (the right-hand side,
+    the start residual, one a CG step)."""
+    return dict(driver=0, solves=rank["row_solve_iters"] + 2, attack=0)
+
+
 def dryrun_kernels(n: int) -> dict:
     """K1 and K2 against their plain versions at the shapes that
     dryrun_multichip(n) gives them on each rank.  K2 (k2_against_plain's
@@ -2668,7 +2998,8 @@ def phase_dryrun() -> dict:
     shapes each run gives them (dryrun_kernels): each run's seconds,
     backend and per-rank parts, every assertion of the dry run held (it
     raises otherwise), no "exploding gradient" line, and each rank's K1
-    and K2 launches by part exactly DRYRUN_K1 and DRYRUN_K2."""
+    and K2 launches by part exactly DRYRUN_K1 and DRYRUN_K2, and its P3
+    launches dryrun_p3's."""
     from graphlearninglayer_tpu_torch.entry import dryrun_multichip
 
     runs, launches = {}, {}
@@ -2691,11 +3022,15 @@ def phase_dryrun() -> dict:
             check(r["k1_launches"] == DRYRUN_K1,
                   f"dryrun_multichip({n}): K1 launches {DRYRUN_K1} on rank "
                   f"{r['rank']} ({r['k1_launches']})")
+            check(r["p3_launches"] == dryrun_p3(r),
+                  f"dryrun_multichip({n}): P3 launches {dryrun_p3(r)} on "
+                  f"rank {r['rank']} ({r['p3_launches']})")
             check(r["k2_launches"] == DRYRUN_K2,
                   f"dryrun_multichip({n}): K2 launches {DRYRUN_K2} on rank "
                   f"{r['rank']} ({r['k2_launches']})")
         launches[n] = dict(k1=[r["k1_launches"] for r in ranks],
-                           k2=[r["k2_launches"] for r in ranks])
+                           k2=[r["k2_launches"] for r in ranks],
+                           p3=[r["p3_launches"] for r in ranks])
     emit("dryrun", runs={str(n): v for n, v in runs.items()})
     return launches
 
@@ -2896,10 +3231,12 @@ def main() -> int:
     phase_parity()
     phase_solve()
     phase_solve_parity()
+    ell = phase_ell()
     k2_launches = phase_transductive_eval(state)
     del state
     torch.cuda.empty_cache()
     k3_stats = phase_k3()
+    probes = phase_probes()
     phase_op_edge()
     host = phase_fullysup(tf32_ms)
     adv = phase_adversarial()
@@ -2917,6 +3254,7 @@ def main() -> int:
     attack_launches = phase_sharded_attack()
     banded = phase_banded(k2_stats[EVAL_N]["ms"])
     k1_main, k2_main = k1_stats[1500], k2_stats[EVAL_N]
+    p3_main = ell["per_l"][P3_CLASSES[0]]
     kernels = [{
         "name": "fused_affinity_sym",
         "route": "cuda",
@@ -2991,6 +3329,63 @@ def main() -> int:
         "bound_share": k3_stats["bound_share"],
         "ms_l2_flushed": k3_stats["ms_l2_flushed"],
         "call_ms": k3_stats["call_ms"],
+    }, {
+        "name": "ell_gather_spmm",
+        "route": "cuda",
+        "source": "graphlearninglayer_tpu_torch/ops/kernels/csrc/"
+                  "ell_spmm.cu",
+        "replaces": "benchmarks/probe_pallas_gather.py:47",
+        # the ell phase's five ELL solves; the numbers at the solve's l=10
+        # (l=100 beside them)
+        "launches": ell["launches"],
+        "max_abs_err": max(v["max_abs_err"] for v in ell["per_l"].values()),
+        "ms": p3_main["ms"],
+        "plain_ms": p3_main["plain_ms"],
+        "bound_ms": p3_main["bound_ms"],
+        "bound_by": p3_main["bound_by"],
+        "library_ms": p3_main["library_ms"],
+        "bound_share": p3_main["bound_share"],
+        "ms_l2_flushed": p3_main["ms_l2_flushed"],
+        "bsr_spmm_ms": p3_main["bsr_spmm_ms"],
+        "slots": ell["slots"],
+        "used_slots": ell["used_slots"],
+        "l100": {key: ell["per_l"][100][key] for key in (
+            "ms", "plain_ms", "library_ms", "bsr_spmm_ms", "bound_ms")},
+        # the row-sharded solves: the world of one's two, and each dry-run
+        # rank's
+        "launches_sharded": {"world_of_one_row_sharded": one["p3"]},
+        "launches_dryrun": {str(n): v["p3"] for n, v in dry.items()},
+    }, {
+        "name": "row_sort",
+        "route": "cuda",
+        "source": "graphlearninglayer_tpu_torch/ops/kernels/csrc/"
+                  "row_sort.cu",
+        "replaces": "benchmarks/probe_pallas_sort.py:25",
+        # on no path: the probes phase's run of the probe's cases
+        "launches": probes["launches"]["row_sort"],
+        "max_abs_err": probes["max_abs_err"]["row_sort"],
+        "ms": probes["row_sort"]["ms"],
+        "plain_ms": probes["row_sort"]["plain_ms"],
+        "bound_ms": probes["row_sort"]["bound_ms"],
+        "bound_by": probes["row_sort"]["bound_by"],
+        "library_ms": probes["row_sort"]["library_ms"],
+        "descending": probes["row_sort_desc"],
+        "scale_if_max_positive": dict(
+            probes["scale"],
+            launches=probes["launches"]["scale_if_max_positive"]),
+    }, {
+        "name": "take_along",
+        "route": "cuda",
+        "source": "graphlearninglayer_tpu_torch/ops/kernels/csrc/"
+                  "take_along.cu",
+        "replaces": "benchmarks/probe_gather_support.py:19",
+        "launches": probes["launches"]["take_along"],
+        "max_abs_err": probes["max_abs_err"]["take_along"],
+        "ms": probes["take_along"]["ms"],
+        "plain_ms": probes["take_along"]["plain_ms"],
+        "bound_ms": probes["take_along"]["bound_ms"],
+        "bound_by": probes["take_along"]["bound_by"],
+        "library_ms": probes["take_along"]["library_ms"],
     }]
     emit("done", wall_s=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))

@@ -152,10 +152,11 @@ def attack_network(num_classes: int = 4) -> SmallEncoder:
     return model.eval()
 
 
-def _launches() -> tuple[int, int]:
-    from .ops.kernels import affinity, knn_topk
+def _launches() -> tuple[int, int, int]:
+    from .ops.kernels import affinity, ell_spmm, knn_topk
 
-    return affinity.fused_affinity_sym.launches, knn_topk.fused_knn.launches
+    return (affinity.fused_affinity_sym.launches,
+            knn_topk.fused_knn.launches, ell_spmm.ell_gather_spmm.launches)
 
 
 def _driver_argv(n: int, device: str) -> list[str]:
@@ -173,7 +174,8 @@ def _driver_argv(n: int, device: str) -> list[str]:
 def _dryrun_rank(n_devices: int) -> dict:
     """One rank's dry run (``spawn_ranks`` runs it in each process of the
     world).  Returns the rank's backend, device, the driver runs' losses
-    and accuracies, the seconds and the K1 / K2 launches of each part."""
+    and accuracies, the seconds and the K1 / K2 / P3 launches of each
+    part, and the row-sharded solve's CG iterations."""
     from .config.cli import parse_option
     from .models import buildnet
     from .parallel import (edge_sharded_transductive_laplace, make_mesh,
@@ -186,15 +188,16 @@ def _dryrun_rank(n_devices: int) -> dict:
     print(f"dryrun rank {mesh.rank} of {mesh.size}: {mesh.backend} on "
           f"{dev}", flush=True)
     out = {"rank": mesh.rank, "backend": mesh.backend, "device": str(dev),
-           "seconds": {}, "k1_launches": {}, "k2_launches": {}}
+           "seconds": {}, "k1_launches": {}, "k2_launches": {},
+           "p3_launches": {}}
 
     def part(name, t0, before):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         out["seconds"][name] = time.perf_counter() - t0
-        k1, k2 = _launches()
-        out["k1_launches"][name] = k1 - before[0]
-        out["k2_launches"][name] = k2 - before[1]
+        for key, now, then in zip(("k1_launches", "k2_launches",
+                                   "p3_launches"), _launches(), before):
+            out[key][name] = now - then
 
     num_classes, k = 4, 4
 
@@ -244,7 +247,8 @@ def _dryrun_rank(n_devices: int) -> dict:
     gmesh = make_mesh(n_devices, axes=("graph",))
     x_nodes, y_lab = d["x_nodes"].to(dev), d["y_lab"].to(dev)
     kw = dict(knn_num=6, epsilon="auto", tau=1e-8, knn_block=32)
-    sol_row = sharded_transductive_laplace(gmesh, x_nodes, y_lab, **kw)
+    sol_row, out["row_solve_iters"], _ = sharded_transductive_laplace(
+        gmesh, x_nodes, y_lab, return_info=True, **kw)
     sol_edge = edge_sharded_transductive_laplace(gmesh, x_nodes, y_lab, **kw)
     part("solves", t0, before)
     if not (bool(torch.isfinite(sol_row).all())

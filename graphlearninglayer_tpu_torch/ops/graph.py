@@ -24,7 +24,7 @@ V_ij = -8 W_ij / (eps_i eps_j), with eps_i the k-th-neighbor distance in
 The ELL family holds the symmetrized matrix row by row (each row's k
 out-edges plus its in-edges, padded to a slot budget, with a COO overflow
 list for hub rows): one sort to build it, then every product is a gather
-and a row sum.
+and a row sum, kernel P3 (``kernels/ell_spmm.py``) on the card.
 
 Node indices are int64 (PyTorch's index type); the JAX package carries
 int32.
@@ -35,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from .kernels.ell_spmm import ell_gather_spmm
 from .knn import knn, knn_tiled
 
 __all__ = [
@@ -339,10 +340,12 @@ def ell_rowsum(ell: SymEll) -> torch.Tensor:
 
 def ell_spmm(ell: SymEll, x: torch.Tensor) -> torch.Tensor:
     """A @ x with A the symmetric ELL(+COO) matrix; x: (n, l) -> (n, l).
-    Hub edges beyond the slots are applied with one scatter-add."""
+    The slots' sum is :func:`kernels.ell_spmm.ell_gather_spmm` (kernel P3
+    on the card); hub edges beyond the slots are applied with one
+    scatter-add."""
     dt = torch.promote_types(ell.val.dtype, x.dtype)
-    x = x.to(dt)
-    out = torch.sum(ell.val.to(dt)[:, :, None] * x[ell.nbr], dim=1)
+    x = x.to(dt).contiguous()
+    out = ell_gather_spmm(ell.nbr, ell.val.to(dt), x)
     if ell.ovf_dst.shape[0]:
         out = _add_overflow(out, ell, ell.ovf_val[:, None] * x[ell.ovf_src])
     return out

@@ -50,9 +50,10 @@ import torch
 from ..precision import full_f32
 from . import _build
 
-__all__ = ["fused_knn", "fused_knn_plain", "MAX_K"]
+__all__ = ["fused_knn", "fused_knn_plain", "smallest_k", "MAX_K"]
 
 MAX_K = 64   # the running list's width (the Pallas kernel's default rt)
+SORT_COLS = 4096    # widest row smallest_k selects from by a stable sort
 
 
 def _rows(x: torch.Tensor, rows) -> tuple[int, int]:
@@ -63,13 +64,65 @@ def _rows(x: torch.Tensor, rows) -> tuple[int, int]:
     return r0, r1
 
 
+def smallest_k(d2: torch.Tensor, k: int, ids: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest entries of each row of ``d2`` (rows, cols), ascending
+    by (value, column id): K2's order, and JAX ``lax.top_k``'s, so that of
+    equal distances the lower id comes first.  ``ids`` (cols,) holds each
+    column's id (default: its position).  Returns ``(values, positions)``,
+    both (rows, k), the positions int64.
+
+    Rows of up to ``SORT_COLS`` entries take a stable ``torch.sort`` of the
+    row (on the card PyTorch sorts such rows in one block's shared memory);
+    wider rows one ``torch.topk`` and a repair of its ties
+    (:func:`select_by_topk`).  On an H100 80GB HBM3 the sort takes 0.22 ms
+    and the repaired top-k 0.50 at 1,500 x 1,500, k = 25 (the train step's
+    KNN); 1.72 and 0.81 at 2,048 x 8,192, k = 50; 11.0 and 3.0 at a 2,048 x
+    60,250 panel of the eval's plain route, where a bare top-k takes 1.6
+    (``chip_smoke.py``'s ``knn_select``, ``PERF.md``)."""
+    cols = d2.shape[1]
+    tie = (torch.arange(cols, device=d2.device) if ids is None
+           else ids.to(torch.int64))
+    select = select_by_sort if cols <= SORT_COLS else select_by_topk
+    idx = select(d2, k, tie)
+    return d2.gather(1, idx), idx
+
+
+def select_by_sort(d2: torch.Tensor, k: int, tie: torch.Tensor
+                   ) -> torch.Tensor:
+    """:func:`smallest_k`'s positions by a stable sort of each row, its
+    columns first put in ``tie`` order."""
+    order = torch.argsort(tie)
+    pos = torch.sort(d2[:, order], dim=1, stable=True).indices[:, :k]
+    return order[pos]
+
+
+def select_by_topk(d2: torch.Tensor, k: int, tie: torch.Tensor
+                   ) -> torch.Tensor:
+    """:func:`smallest_k`'s positions by one ``torch.topk`` of each row,
+    whose order among equal values is open, then repaired: a row where
+    more than k entries are at most its k-th kept value left out an entry
+    that ties with it, and is selected again by :func:`select_by_sort`
+    (one host sync decides whether any row is); then each row's k entries
+    are put in (value, id) order."""
+    vals, idx = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+    short = torch.nonzero((d2 <= vals[:, k - 1:]).sum(1) > k).squeeze(1)
+    if len(short):
+        idx[short] = select_by_sort(d2[short], k, tie)
+        vals = d2.gather(1, idx)
+    by_id = torch.argsort(tie[idx], dim=1)
+    by_value = torch.sort(vals.gather(1, by_id), dim=1, stable=True).indices
+    return idx.gather(1, by_id.gather(1, by_value))
+
+
 def fused_knn_plain(x: torch.Tensor, k: int, block: int = 1024, rows=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2 in plain PyTorch (the JAX package's ``knn_tiled`` route): per
     ``block`` query rows, one distance panel against all of ``x`` and one
-    ``torch.topk``.  Peak panel memory is ``block`` x n.  ``rows=(r0, r1)``:
-    the query rows ``x[r0:r1]`` only.  The CPU path, and the yardstick the
-    kernel is held against on the card."""
+    selection by (d2, index), :func:`smallest_k`.  Peak panel memory is
+    ``block`` x n.  ``rows=(r0, r1)``: the query rows ``x[r0:r1]`` only.
+    The CPU path, and the yardstick the kernel is held against on the
+    card."""
     r0, r1 = _rows(x, rows)
     xx_all = torch.sum(x * x, dim=-1)
     nbrs, dists = [], []
@@ -81,7 +134,7 @@ def fused_knn_plain(x: torch.Tensor, k: int, block: int = 1024, rows=None
             d2 = (qq[:, None] + xx_all[None, :]
                   - 2.0 * (xb @ x.T)).clamp_min(0.0)
             d2[local, local + start] = -1.0
-            dist, idx = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+            dist, idx = smallest_k(d2, k)
             nbrs.append(idx)
             dists.append(dist.clamp_min(0.0))
     return torch.cat(nbrs), torch.cat(dists)

@@ -2,7 +2,7 @@
 
 Twin of ``graphlearninglayer_tpu/ops/knn.py``.  At the per-batch graph sizes
 of the training op (n ~ 1.5k) exact KNN is one matrix product for the
-distances plus one ``torch.topk`` (:func:`knn`).  At the transductive eval's
+distances plus one selection by (d2, index) (:func:`knn`).  At the transductive eval's
 size (n ~ 60k, k = 50) :func:`knn_tiled` never forms the n x n matrix: for
 k <= 64 it is kernel K2 on the card and K2's plain version on the CPU, for
 larger k the blocked route of the JAX package's ``knn_tiled``.  Exact KNN is
@@ -12,12 +12,15 @@ Conventions (matching the reference):
   * Euclidean metric; ``dist2`` is the *squared* distance (the affinity only
     ever consumes d^2).
   * Self is always the first neighbor with distance 0.
+  * Equal distances go to the lower index (``kernels.knn_topk.smallest_k``),
+    as in K2 and the JAX package's ``lax.top_k`` routes, so coincident
+    rows give the same lists on every route.
 """
 from __future__ import annotations
 
 import torch
 
-from .kernels.knn_topk import MAX_K, fused_knn, fused_knn_plain
+from .kernels.knn_topk import MAX_K, fused_knn, fused_knn_plain, smallest_k
 
 __all__ = ["pairwise_dist2", "knn", "knn_tiled"]
 
@@ -39,8 +42,8 @@ def knn(x: torch.Tensor, k: int,
     """Exact KNN over all rows of ``x``; self included as neighbor 0.
 
     Returns ``(nbr, dist2)`` with shapes (n, k): ``nbr[i, 0] == i`` and the
-    remaining columns are the k-1 nearest other points in ascending distance
-    order.  ``nbr`` is int64, PyTorch's index type.  ``dist2`` holds squared
+    remaining columns are the k-1 nearest other points in ascending
+    (distance, index) order.  ``nbr`` is int64, PyTorch's index type.  ``dist2`` holds squared
     distances (``dist2[:, 0] == 0``).
 
     ``d2``: optionally pass a precomputed (n, n) squared-distance matrix (the
@@ -52,7 +55,7 @@ def knn(x: torch.Tensor, k: int,
     # pin self strictly first regardless of float noise or coincident points
     eye = torch.eye(n, dtype=torch.bool, device=x.device)
     d2 = d2.masked_fill(eye, -1.0)
-    dist, idx = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+    dist, idx = smallest_k(d2, k)
     return idx, dist.clamp_min(0.0)
 
 
@@ -71,7 +74,7 @@ def knn_tiled(x: torch.Tensor, k: int,
       version runs.
     * k > 64: the blocked route of the JAX package's ``knn_tiled``, on
       either device and in the input's dtype: per ``block`` query rows, one
-      distance panel against all of ``x`` and one ``torch.topk``, self pinned
+      distance panel against all of ``x`` and one selection, self pinned
       first via d2 = -1 (:func:`kernels.knn_topk.fused_knn_plain`).  No
       kernel is launched, so ``fused_knn.launches`` does not move.
 

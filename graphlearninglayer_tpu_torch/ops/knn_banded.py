@@ -19,10 +19,13 @@ can run over a narrow band of them instead of all n columns:
      banded distance, no unscanned point can enter its list;
   4. rerun the rows left uncertified against all columns.
 
-Every returned list is therefore exactly ``knn_tiled``'s (up to ties); a
-poor permutation only raises the fallback fraction.  The JAX package runs
-this outside Pallas, and so does the port: matrix products and
-``torch.topk`` on either device, no kernel.
+Every returned list is therefore exactly ``knn_tiled``'s: both passes
+select by (d2, original node id) (``kernels.knn_topk.smallest_k``), the
+rule of K2 and of ``knn_tiled``'s plain route, so a tie at the k-th slot
+goes the same way whatever the permutation.  A poor permutation only
+raises the fallback fraction.  The JAX package runs this outside Pallas,
+and so does the port: matrix products and a top-k selection on either
+device, no kernel.
 
 Two differences from the JAX twin, neither of which changes a list:
 
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from .graph import pad_far_rows
+from .kernels.knn_topk import smallest_k
 from .precision import full_f32
 
 __all__ = ["banded_knn"]
@@ -61,8 +65,8 @@ def _banded_scan(x_p: torch.Tensor, n_real: int, k: int,
     ``n_real`` on are padding).
 
     Returns (nbr_p, dist2, certified): neighbor ids in permuted space,
-    ascending squared distances (self pinned first) and the per-row
-    certificate."""
+    ascending squared distances (self pinned first, ties to the lower
+    original id ``self_id``) and the per-row certificate."""
     n, d = x_p.shape
     nb = n // block
     xb = x_p.reshape(nb, block, d)
@@ -98,7 +102,7 @@ def _banded_scan(x_p: torch.Tensor, n_real: int, k: int,
                   - 2.0 * (xb[q] @ x_p[cols].T)).clamp_min(0.0)
             d2 = d2.masked_fill(self_id[rows][:, None]
                                 == self_id[cols][None, :], -1.0)
-            dist2, idx = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+            dist2, idx = smallest_k(d2, k, self_id[cols])
             # the certificate: the smallest lower bound over the blocks
             # outside the band, with the JAX twin's slack
             scanned = (blocks[None, :] == bids[:, None]).any(dim=0)
@@ -110,9 +114,10 @@ def _banded_scan(x_p: torch.Tensor, n_real: int, k: int,
     return torch.cat(nbrs), torch.cat(dists), torch.cat(certs)
 
 
-def _fallback_rows(x_p: torch.Tensor, rows: torch.Tensor, k: int):
+def _fallback_rows(x_p: torch.Tensor, rows: torch.Tensor, k: int,
+                   self_id: torch.Tensor):
     """Exact full-width KNN of the (permuted) row ids ``rows``, in panels of
-    ``_FALLBACK_PANEL`` rows."""
+    ``_FALLBACK_PANEL`` rows, ties to the lower original id ``self_id``."""
     n = x_p.shape[0]
     xx = torch.sum(x_p * x_p, dim=-1)
     cols = torch.arange(n, device=x_p.device)
@@ -124,7 +129,7 @@ def _fallback_rows(x_p: torch.Tensor, rows: torch.Tensor, k: int):
             d2 = (xx[r][:, None] + xx[None, :]
                   - 2.0 * (xq @ x_p.T)).clamp_min(0.0)
             d2 = d2.masked_fill(r[:, None] == cols[None, :], -1.0)
-            dist2, idx = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+            dist2, idx = smallest_k(d2, k, self_id)
             nbrs.append(idx)
             dists.append(dist2.clamp_min(0.0))
     return torch.cat(nbrs), torch.cat(dists)
@@ -135,8 +140,8 @@ def banded_knn(x, k: int, perm, block: int = 512, band: int = 16,
     """Exact KNN of ``x`` (n, d) steered by a (possibly stale) permutation.
 
     The same ``(nbr, dist2)`` as :func:`ops.knn.knn_tiled` in the original
-    row order (self first, ascending squared distances; ties may order
-    differently), on ``x``'s device and in its dtype.  ``perm``: host ints
+    row order (self first, ascending squared distances, ties to the lower
+    node id), on ``x``'s device and in its dtype.  ``perm``: host ints
     that permute the rows into feature-space-coherent order, such as the
     last eval's cached BSR permutation.
 
@@ -165,7 +170,7 @@ def banded_knn(x, k: int, perm, block: int = 512, band: int = 16,
     if frac > max_fallback_frac:
         return None, None, frac
     if len(bad):
-        fb_nbr, fb_d2 = _fallback_rows(x_p, bad, k)
+        fb_nbr, fb_d2 = _fallback_rows(x_p, bad, k, perm_t)
         nbr_p[bad] = fb_nbr
         dist2[bad] = fb_d2
 

@@ -332,6 +332,9 @@ def transductive_laplace(x, y, knn_num: int = 50, epsilon="auto",
     :class:`EvalGraphCache` shared across calls (permutation reuse, sticky
     budgets, the banded KNN's permutation) without changing the result.
     ``knn_block`` is the plain KNN route's panel height (CPU tensors only).
+    ``mode='ell'`` runs its matvecs through kernel P3 on the card, which
+    takes float32 only: float64 features on the card raise ``TypeError``
+    there (on the CPU every dtype runs P3's plain version).
     """
     epsilon = epsilon if isinstance(epsilon, str) else float(epsilon)
     if mode not in ("bsr", "sorted", "scatter", "ell"):

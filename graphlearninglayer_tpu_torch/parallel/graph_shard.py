@@ -6,7 +6,7 @@ union-edge matrix is put in its combined ELL form (``ops/graph.py``
 its rows are cut into one contiguous block a rank, so a matvec is
 
     all-gather the (n / P, l) iterate  ->  (n, l) on every rank
-    gather + slot-sum over the local rows
+    gather + slot-sum over the local rows (kernel P3 on the card)
 
 and the CG (``stable_conjgrad``'s semantics, with masked per-column
 updates) keeps every iterate sharded: its alpha / beta reductions are local
@@ -20,6 +20,7 @@ import torch
 
 from ..ops.graph import (BatchGraph, build_graph, build_sym_ell,
                          edge_weights, ell_cap, max_in_degree, pad_far_rows)
+from ..ops.kernels.ell_spmm import ell_gather_spmm
 from ..ops.solve import stable_conjgrad
 from .mesh import Mesh
 
@@ -59,7 +60,8 @@ def sharded_laplace_solve(mesh: Mesh, g: BatchGraph, y: torch.Tensor,
 
     w, _ = edge_weights(g)
     ell = build_sym_ell(g, w, ell_cap(int(max_in_degree(g))))
-    nbr_loc, val_loc = ell.nbr[lo:lo + chunk], ell.val[lo:lo + chunk]
+    nbr_loc = ell.nbr[lo:lo + chunk].contiguous()
+    val_loc = ell.val[lo:lo + chunk].contiguous()
     dev, dt = val_loc.device, val_loc.dtype
     y_loc = torch.zeros((chunk, l), dtype=dt, device=dev)
     if lo < k_lab:
@@ -72,8 +74,8 @@ def sharded_laplace_solve(mesh: Mesh, g: BatchGraph, y: torch.Tensor,
 
     def spmm(x_loc):
         """This rank's rows of W @ x, from the all-gathered iterate."""
-        x_full = mesh.all_gather(x_loc)
-        return torch.einsum("ns,nsl->nl", val_loc, x_full[nbr_loc])
+        return ell_gather_spmm(nbr_loc, val_loc,
+                               mesh.all_gather(x_loc).contiguous())
 
     # rhs = M (W_ul Y): y is zero on unlabeled rows, M zero on labeled ones
     b = mscale[:, None] * spmm(y_loc)

@@ -13,7 +13,10 @@ from graphlearninglayer_tpu_torch.data import CHANNEL_STATS
 from graphlearninglayer_tpu_torch.models import BuildNet
 from graphlearninglayer_tpu_torch.ops import dense_mode as tdm
 from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+from graphlearninglayer_tpu_torch.ops.kernels import ell_spmm as p3
 from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
+from graphlearninglayer_tpu_torch.ops.kernels import row_sort as p1
+from graphlearninglayer_tpu_torch.ops.kernels import take_along as p2
 from graphlearninglayer_tpu_torch.ops.knn import knn_tiled
 from graphlearninglayer_tpu_torch.train import (create_train_state,
                                                 make_gl_train_step,
@@ -797,3 +800,161 @@ def test_sharded_attack_world_of_one_equals_single_device(nccl_world_of_one):
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
         torch.backends.cudnn.allow_tf32 = True
+
+
+def _ell(m, n, s, padding, seed):
+    """A random ELL structure of m rows over n columns with s slots, on
+    the card: positive values, and with ``padding`` the trailing slots of
+    each row (a random count) padding (column 0, value 0), as
+    ``build_sym_ell`` pads; with ``padding="scattered"`` four in five
+    slots anywhere in the row (a masked edge's slot is 0 too)."""
+    gen = torch.Generator().manual_seed(seed)
+    nbr = torch.randint(0, n, (m, s), generator=gen)
+    val = torch.rand((m, s), generator=gen)
+    if padding == "scattered":
+        pad = torch.rand((m, s), generator=gen) < 0.8
+        nbr, val = nbr.masked_fill(pad, 0), val.masked_fill(pad, 0.0)
+    elif padding:
+        used = torch.randint(0, s + 1, (m, 1), generator=gen)
+        pad = torch.arange(s)[None, :] >= used
+        nbr, val = nbr.masked_fill(pad, 0), val.masked_fill(pad, 0.0)
+    return nbr.cuda(), val.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding", [False, True, "scattered"])
+@pytest.mark.parametrize("l", [3, 10, 100, 130])
+@pytest.mark.parametrize("n", [1000, 20000])
+def test_ell_gather_spmm_matches_plain_on_card(cuda_device, n, l, padding):
+    """P3 against its plain version: within 1e-6 max_i sum_s |val[i, s]|
+    max |x| an entry (the kernel sums the slots in another order than
+    torch.sum); with padding slots, the rows of a half of x's (a rank's
+    rows of the row-sharded solve) indexing all of it.  l = 3, 10 and 100
+    take the kernel's three lane layouts, 130 two passes over the slots."""
+    m = n // 2 if padding else n
+    nbr, val = _ell(m, n, 96, padding, seed=n + l)
+    x = torch.randn((n, l), generator=torch.Generator().manual_seed(l)
+                    ).cuda()
+    before = p3.ell_gather_spmm.launches
+    got = p3.ell_gather_spmm(nbr, val, x)
+    torch.cuda.synchronize()
+    assert p3.ell_gather_spmm.launches == before + 1
+    assert got.shape == (m, l) and got.dtype == torch.float32
+    want = p3.ell_gather_spmm_plain(nbr, val, x)
+    bar = 1e-6 * val.abs().sum(1).max().item() * x.abs().max().item()
+    assert (got - want).abs().max().item() <= bar
+
+
+@pytest.mark.cuda
+def test_ell_gather_spmm_raises_on_what_it_does_not_take(cuda_device):
+    nbr, val = _ell(50, 80, 8, False, seed=0)
+    x = torch.randn((80, 10), device="cuda")
+    with pytest.raises(TypeError, match="int64"):
+        p3.ell_gather_spmm(nbr.int(), val, x)
+    with pytest.raises(TypeError, match="float32"):
+        p3.ell_gather_spmm(nbr, val.double(), x)
+    with pytest.raises(TypeError, match="float32"):
+        p3.ell_gather_spmm(nbr, val, x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        p3.ell_gather_spmm(nbr, val, x.T.contiguous().T)
+    with pytest.raises(ValueError, match="contiguous"):
+        p3.ell_gather_spmm(nbr.T.contiguous().T, val, x)
+
+
+@pytest.mark.cuda
+def test_ell_solve_on_card_launches_p3_each_matvec(cuda_device):
+    """transductive_laplace(mode='ell') on the card: P3 once a matvec,
+    iterations + 2 launches a solve (the right-hand side, the start
+    residual, one a CG step), converged, and the 'sorted' solve's classes
+    on 99.9% of the rows."""
+    from graphlearninglayer_tpu_torch.ops import (one_hot_encode,
+                                                  transductive_laplace)
+
+    x = _knn_features(5003, 64, seed=3).cuda()
+    y = one_hot_encode(torch.arange(60) % 10, 10).cuda()
+    before = p3.ell_gather_spmm.launches
+    pred, iters, err = transductive_laplace(x, y, knn_num=50, mode="ell",
+                                            return_info=True)
+    assert p3.ell_gather_spmm.launches - before == iters + 2
+    assert err <= 1e-10 and bool(torch.isfinite(pred).all())
+    want = transductive_laplace(x, y, knn_num=50, mode="sorted")
+    agree = (pred.argmax(1) == want.argmax(1)).float().mean().item()
+    assert agree >= 0.999
+
+
+@pytest.mark.cuda
+def test_ell_solve_on_card_raises_on_float64(cuda_device):
+    """P3 takes float32 only, so a float64 ELL solve on the card (k > 64:
+    the plain KNN route, which takes float64, where K2 would raise first)
+    raises where its first matvec reaches the kernel; nothing falls
+    back."""
+    from graphlearninglayer_tpu_torch.ops import (one_hot_encode,
+                                                  transductive_laplace)
+
+    x = _knn_features(1003, 16, seed=4).double().cuda()
+    y = one_hot_encode(torch.arange(30) % 10, 10).double().cuda()
+    before = p3.ell_gather_spmm.launches
+    with pytest.raises(TypeError, match="P3 kernel takes float32"):
+        transductive_laplace(x, y, knn_num=70, mode="ell")
+    assert p3.ell_gather_spmm.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("q,m,ties", [(256, 512, False), (64, 1024, False),
+                                      (16, 1024, True), (3, 2, True)])
+def test_row_sort_equals_plain_on_card(cuda_device, q, m, ties, descending):
+    """P1's bitonic sort equal to torch.sort(stable=True), values and
+    indices, at the probe's 256 x 512 and at 64 x 1,024; on rows full of
+    ties and NaNs the index breaks each tie as the stable sort does."""
+    gen = torch.Generator().manual_seed(q + m)
+    if ties:
+        x = torch.randint(-3, 4, (q, m), generator=gen).float()
+        x[torch.rand((q, m), generator=gen) < 0.05] = float("nan")
+    else:
+        x = torch.randn((q, m), generator=gen)
+    x = x.cuda()
+    before = p1.row_sort.launches
+    vals, idx = p1.row_sort(x, descending)
+    torch.cuda.synchronize()
+    assert p1.row_sort.launches == before + 1
+    want_v, want_i = p1.row_sort_plain(x, descending)
+    assert torch.equal(idx, want_i)
+    assert torch.equal(vals.nan_to_num(7.0), want_v.nan_to_num(7.0))
+    with pytest.raises(TypeError, match="float32"):
+        p1.row_sort(x.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_scale_if_max_positive_equals_plain_on_card(cuda_device, sign):
+    x = sign * torch.randn((256, 512)).abs().cuda()
+    before = p1.scale_if_max_positive.launches
+    got = p1.scale_if_max_positive(x)
+    torch.cuda.synchronize()
+    assert p1.scale_if_max_positive.launches == before + 1
+    assert torch.equal(got, p1.scale_if_max_positive_plain(x))
+    x[3, 4] = float("nan")      # the max is NaN: x stays
+    assert torch.equal(p1.scale_if_max_positive(x).nan_to_num(7.0),
+                       x.nan_to_num(7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,axis", [
+    (256, 128, 0), (8192, 128, 0), (128, 128, 1), (128, 1024, 1),
+    (8, 8192, 1), (65536, 128, 0)])
+def test_take_along_equals_plain_on_card(cuda_device, m, n, axis):
+    """P2 at the probe's six shapes, equal to torch.gather."""
+    gen = torch.Generator().manual_seed(m + n)
+    x = torch.randn((m, n), generator=gen).cuda()
+    idx = torch.randint(0, m if axis == 0 else n, (m, n),
+                        generator=gen).cuda()
+    before = p2.take_along.launches
+    got = p2.take_along(x, idx, axis)
+    torch.cuda.synchronize()
+    assert p2.take_along.launches == before + 1
+    assert torch.equal(got, p2.take_along_plain(x, idx, axis))
+    with pytest.raises(TypeError, match="int64"):
+        p2.take_along(x, idx.int(), axis)
+    with pytest.raises(TypeError, match="float32"):
+        p2.take_along(x.double(), idx, axis)

@@ -131,5 +131,6 @@ def test_dryrun_multichip_on_two_cpu_ranks(capfd):
         assert r["loss_device_data"] == ranks[0]["loss_device_data"]
     # the kernels' plain versions ran on the CPU: no launch counted
     assert all(v == 0 for r in ranks for key in ("k1_launches",
-                                                 "k2_launches")
+                                                 "k2_launches",
+                                                 "p3_launches")
                for v in r[key].values())

@@ -9,7 +9,8 @@ package's on the conftest's virtual CPU devices, in float64.
   over 2 and 3: the JAX twins' predictions within 1e-8, residual
   <= 1e-10; every rank returns the same scores (the JAX row-sharded twin
   builds its graph op by op, seconds a call, so it is held at two world
-  sizes);
+  sizes); the row-sharded solve also against the port's single-device
+  ELL solve, with its P3 slot sums counted on every rank;
 * the edge-sharded eval's cache: the second eval reuses the permutation
   (no k-means) and gives the cold solve's result;
 * ``test_gl_transductive(mesh=...)``: graphs of at least ``shard_min_n``
@@ -32,6 +33,8 @@ from graphlearninglayer_tpu.parallel import graph_shard as jgs
 from graphlearninglayer_tpu.parallel import make_mesh as jmake_mesh
 from graphlearninglayer_tpu_torch.models import BuildNet
 from graphlearninglayer_tpu_torch.models import buildnet as tbn
+from graphlearninglayer_tpu_torch.ops import graph as tgraph
+from graphlearninglayer_tpu_torch.ops import transductive as ttrans
 from graphlearninglayer_tpu_torch.parallel import (build_edge_shard_plan,
                                                    spawn_ranks)
 from graphlearninglayer_tpu_torch.train import (create_train_state,
@@ -188,6 +191,30 @@ def test_row_sharded_solve_matches_jax(worlds, world, name):
     np.testing.assert_allclose(got["pred"], np.asarray(want), atol=1e-8)
     assert got["err"] <= 1e-10
     _same_on_every_rank(ranks, name, "pred")
+
+
+@pytest.mark.parametrize("world,name", [(2, "graph"), (3, "graph_padded")])
+def test_row_sharded_solve_matches_the_single_device_ell_solve(worlds, world,
+                                                               name):
+    """Each rank's matvec is P3's slot sum over its rows
+    (``ell_gather_spmm``, its plain version on the CPU): the scores of the
+    single-device ``transductive_laplace(mode='ell')`` within 1e-8, the
+    same CG iterations within one, and ``ell_gather_spmm`` called exactly
+    iterations + 2 times on every rank (the right-hand side, the start
+    residual, one a CG step)."""
+    cases, ranks = worlds[world]
+    c = cases[name]
+    x = torch.tensor(c["x"])
+    x = tgraph.pad_far_rows(x, (-x.shape[0]) % world)
+    want, iters, err = ttrans.transductive_laplace(
+        x, torch.tensor(c["y"]), mode="ell", return_info=True, **c["kw"])
+    want = want[:c["x"].shape[0] - c["y"].shape[0]].numpy()
+    assert err <= 1e-10
+    for r in ranks:
+        got = r[name]
+        np.testing.assert_allclose(got["pred"], want, atol=1e-8, rtol=0)
+        assert abs(got["iters"] - iters) <= 1
+        assert got["p3_calls"] == got["iters"] + 2
 
 
 def test_edge_sharded_cache_reuses_the_permutation(worlds):

@@ -131,6 +131,7 @@ def parallel_worker(cases: dict) -> dict:
     """The sharded KNN, edge-sharded and row-sharded solves and the eval's
     mesh route on the world's 'graph' mesh; returns numpy results."""
     import graphlearninglayer_tpu_torch.ops.bsr as bsr
+    import graphlearninglayer_tpu_torch.parallel.graph_shard as graph_shard
     from graphlearninglayer_tpu_torch.evalx import test_gl_transductive
     from graphlearninglayer_tpu_torch.models import BuildNet
     from graphlearninglayer_tpu_torch.ops import EvalGraphCache
@@ -157,9 +158,15 @@ def parallel_worker(cases: dict) -> dict:
             out[name] = dict(pred=pred.numpy(), iters=iters, err=err,
                              stats=stats)
         elif c["kind"] == "graph":
+            calls = []
+            orig = graph_shard.ell_gather_spmm
+            graph_shard.ell_gather_spmm = \
+                lambda *a: calls.append(1) or orig(*a)
             pred, iters, err = sharded_transductive_laplace(
                 mesh, t(c["x"]), t(c["y"]), **c["kw"], return_info=True)
-            out[name] = dict(pred=pred.numpy(), iters=iters, err=err)
+            graph_shard.ell_gather_spmm = orig
+            out[name] = dict(pred=pred.numpy(), iters=iters, err=err,
+                             p3_calls=len(calls))
         elif c["kind"] == "cache":
             calls = []
             orig = bsr.kmeans
