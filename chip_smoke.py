@@ -18,7 +18,10 @@ each:
           per source, all started together;
   k1      kernel K1 against its plain PyTorch version on the card at the
           op's shape (n=1500, d=128, k=25) and at n=300, max |diff| <= 1e-6,
-          W exactly symmetric; its device time over a run of 100
+          W exactly symmetric; on a batch at n=1500 with 30 rows copied
+          onto others (k1_dup), W exactly 0 on every copied pair in both
+          (each kept entry's d2 from the rows' difference) and within 1e-6
+          elsewhere; its device time over a run of 100
           back-to-back launches (M and W, 18 MB at n=1500, stay in the
           50 MB L2 between them), over 20 launches with L2 flushed before
           each, and one call's time with the wrapper's host work in it
@@ -34,7 +37,11 @@ each:
           the bound; then (k2_rows) K2 over each half of the rows, a
           rank's share of a two-rank sharded build: bit for bit the full
           call's rows, against the plain version's range with the same
-          bar, timed beside the half's one-triangle bound;
+          bar, timed beside the half's one-triangle bound; and (k2_dup) a
+          batch at n=1500 with 30 rows copied onto others: each copy in
+          its row's second slot at d2 exactly 0, in the kernel and the
+          plain version, and d2 within 1e-6 of the plain version's on the
+          rows whose lists are equal;
   op      laplace_learning forward + backward on the card in float32 against
           the port's float64 CPU result on the same input;
   entry   the flagship forward through entry() (graphlearninglayer_tpu_torch/
@@ -66,13 +73,18 @@ each:
           against the port on the CPU (float64);
   ell     kernel P3 (ops/kernels/ell_spmm.py, the ELL gather SpMM) on the
           solve's graph (60,250 nodes, k=50) in the symmetric ELL form of
-          mode='ell': its slots S, padding and overflow; for l = 10 and
-          100 the kernel against its plain version (1e-6 max_i
+          mode='ell': its slots S, the slots each row counts, padding and
+          overflow; for l = 10 and 100 the kernel (over each row's
+          counted slots) against its plain version (1e-6 max_i
           sum_s |val[i, s]| max |x| an entry), its device ms per matvec
           (100 launches, L2 warm; 20 flushed) beside the plain version's,
           a torch.sparse CSR product's (of the slots in use) and
-          bsr_spmm's on the same graph, and the bound (val's bytes, and
-          nbr's on the slots in use only); then (ell_solve) transductive_laplace(mode='ell'),
+          bsr_spmm's on the same graph, the bound (val and nbr on the
+          counted slots, the counts, x and out once) beside the previous
+          design's count (val on every slot, nbr on the used ones), and
+          the bytes of 32-byte L2 sectors that the used slots' rows of x
+          span (a floor for a design that gathers each from L2, not the
+          bound); then (ell_solve) transductive_laplace(mode='ell'),
           two warm-up and three timed solves: converged, >= 99.9% equal
           argmax against mode='bsr', P3 exactly CG iterations + 2 times a
           solve;
@@ -295,7 +307,8 @@ FLUSH_BYTES = 256 * 2**20
 # kernel-name substrings that sort the profile's device time into groups;
 # the first group that matches takes the kernel
 PROFILE_GROUPS = (
-    ("k1_affinity", ("affinity_tile_kernel",)),    # K1 and K3
+    # K1 (affinity_sym_kernel) and K3 (affinity_tile_kernel)
+    ("k1_affinity", ("affinity_sym_kernel", "affinity_tile_kernel")),
     ("conv", ("xmma", "implicit_gemm", "conv", "dgrad", "wgrad", "fft")),
     ("conv_layout", ("nhwctonchw", "nchwtonhwc")),
     ("batchnorm", ("batchnorm", "batch_norm", "bn_")),
@@ -394,9 +407,11 @@ def device_ms(fn, reps: int = 100, flush: bool = False) -> float:
 
 
 def k1_bound_ms(n: int, d: int) -> tuple[float, str]:
-    """Least time for K1's work: x, eps and M read once, W written once;
-    W is symmetric, so the dot products need only the Gram matrix's upper
-    triangle, n (n + 1) d f32 operations."""
+    """Least time for K1's and K3's work: x, eps and M read once, W
+    written once; K3's W is symmetric in d2, so its dot products need only
+    the Gram matrix's upper triangle, n (n + 1) d f32 operations.  K1 does
+    fewer (3 d a kept entry, at most 2 k n of them), so the bytes bound
+    both at every shape the smoke times."""
     nbytes = 4 * (n * d + n + n * n) + 4 * n * n
     ops = n * (n + 1) * d
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOP_PER_S
@@ -517,6 +532,7 @@ def phase_k1():
     import torch
 
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
 
     result = {}
     for n in (1500, 300):
@@ -531,23 +547,75 @@ def phase_k1():
         check(bool(torch.equal(got, got.T)), f"K1's W is symmetric at n={n}")
         times = affinity_times(lambda: k1.fused_affinity_sym(*args),
                                lambda: k1.fused_affinity_sym_plain(*args),
-                               n)
+                               n, plain_syncs=True)
         emit("k1", n=n, d=128, k=K, max_abs_err=err, tol=K1_TOL, **times,
              edges=int(torch.maximum(m_raw, m_raw.T).sum().item()))
         result[n] = dict(max_abs_err=err, **times)
+    result["dup"] = k1_duplicated_rows()
     return result
 
 
-def affinity_times(kernel, plain, n: int) -> dict:
+def duplicated_rows(x, n_copies: int = 30):
+    """``x`` with rows 10.. copied onto rows n / 2.. (``n_copies`` each),
+    and the (source, copy) index tensors."""
+    import torch
+
+    n = x.shape[0]
+    src = torch.arange(10, 10 + n_copies, device=x.device)
+    dup = torch.arange(n // 2, n // 2 + n_copies, device=x.device)
+    x = x.clone()
+    x[dup] = x[src]
+    return x, src, dup
+
+
+def k1_duplicated_rows() -> dict:
+    """K1 and its plain version on k1_inputs' features at n=1500 with 30
+    rows copied onto others (each the other's nearest neighbor): W exactly
+    0 on every copied pair and its transpose in both, since both form a
+    kept entry's d2 from the rows' difference; K1_TOL apart elsewhere."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.ops.dense_mode import build_dense_graph
+    from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
+
+    x, src, dup = duplicated_rows(k1_inputs(1500)[0])
+    g = build_dense_graph(x, K)
+    args = (x, g.eps, g.m_raw)
+    got = k1.fused_affinity_sym(*args)
+    want = k1.fused_affinity_sym_plain(*args)
+    torch.cuda.synchronize()
+    kept = bool(g.m_raw[dup, src].all() and g.m_raw[src, dup].all())
+    zero = {name: not bool(w[dup, src].any() or w[src, dup].any())
+            for name, w in (("kernel", got), ("plain", want))}
+    err = (got - want).abs().max().item()
+    emit("k1_dup", n=1500, copies=len(src), pairs_are_knn_edges=kept,
+         w_zero_on_pairs=zero, max_abs_err=err, tol=K1_TOL,
+         d2_on_pairs=g.d2[dup, src].abs().max().item())
+    check(kept, "each copied row is a KNN edge of its source")
+    check(all(zero.values()), f"K1 and plain give W = 0 on copied pairs "
+          f"({zero})")
+    check(err <= K1_TOL, f"K1 within {K1_TOL} of plain with copied rows "
+          f"({err})")
+    return dict(max_abs_err=err)
+
+
+def affinity_times(kernel, plain, n: int, plain_syncs: bool = False
+                   ) -> dict:
     """K1's or K3's device times at n (d=128) beside the bound: ``ms`` over
     100 back-to-back launches, with M and W warm in the L2 (18 MB at
     n=1500); ``ms_l2_flushed`` over 20 launches, each after an L2 flush;
     ``call_ms`` one call with the wrapper's host work inside the events;
-    ``plain_ms`` the plain version over 20 back-to-back calls."""
+    ``plain_ms`` the plain version over 20 back-to-back calls, or, where
+    it waits on the device itself (``plain_syncs``: K1's, whose
+    ``torch.nonzero`` finds the kept entries), the median of 20 calls
+    each between its own events."""
     ms = device_ms(kernel)
     bound_ms, bound_by = k1_bound_ms(n, 128)
+    plain_ms = (cuda_ms(plain, reps=20) if plain_syncs
+                else device_ms(plain, reps=20))
     return dict(ms=ms, ms_l2_flushed=device_ms(kernel, reps=20, flush=True),
-                call_ms=cuda_ms(kernel), plain_ms=device_ms(plain, reps=20),
+                call_ms=cuda_ms(kernel), plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 bound_share=bound_ms / ms)
 
@@ -630,7 +698,41 @@ def phase_k2():
         result[n]["rows"] = halves
         del x, nbr, dist2, pn, pd, gap
     torch.cuda.empty_cache()
+    result["dup"] = k2_duplicated_rows()
     return result
+
+
+def k2_duplicated_rows() -> dict:
+    """K2 and its plain version on clustered features at n=1500, k=25 with
+    30 rows copied onto others: each copy in its source's second slot and
+    back, at d2 exactly 0 in both (each kept edge's d2 from the rows'
+    difference), self at 0; on the rows whose lists are equal the d2 of
+    the two within 1e-6, both being the difference form."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
+
+    x, src, dup = duplicated_rows(
+        clustered_features(1500, SEED + 7)[0].to("cuda"))
+    nbr, dist2 = k2.fused_knn(x, 25)
+    pn, pd = k2.fused_knn_plain(x, 25, 2048)
+    torch.cuda.synchronize()
+    found = {}
+    for name, (n_, d_) in (("kernel", (nbr, dist2)), ("plain", (pn, pd))):
+        found[name] = bool(torch.equal(n_[src, 1], dup)
+                           and torch.equal(n_[dup, 1], src)
+                           and not d_[src, :2].any() and not d_[dup, :2].any()
+                           and not d_[:, 0].any())
+    same = (nbr == pn).all(1)
+    err = (dist2[same] - pd[same]).abs().max().item()
+    emit("k2_dup", n=1500, k=25, copies=len(src), copies_at_zero=found,
+         rows_equal_lists=int(same.sum()), max_abs_err=err, tol=1e-6)
+    check(all(found.values()), f"K2 and plain put each copy second at d2 "
+          f"0 ({found})")
+    check(same.float().mean().item() >= 0.99,
+          f"K2 and plain lists equal on {int(same.sum())} of 1500 rows")
+    check(err <= 1e-6, f"K2 d2 within 1e-6 of plain on equal lists ({err})")
+    return dict(max_abs_err=err)
 
 
 def k2_against_plain(nbr, dist2, pn, pd, row0: int, what: str) -> dict:
@@ -690,6 +792,7 @@ def phase_op():
 
     from graphlearninglayer_tpu_torch.ops import laplace_learning
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
 
     n, k_lab, l = N_BASE + N_BATCH, N_BASE, NUM_CLASSES
     x, seed = normalized_features(n, 128, SEED, min_gap=2e-6)
@@ -747,6 +850,7 @@ def _train_run(label, dtype, cudnn_tf32, steps, data, rng):
 
     from graphlearninglayer_tpu_torch.data import CHANNEL_STATS
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
     from graphlearninglayer_tpu_torch.train import (make_gl_train_step,
                                                     metrics_to_host)
 
@@ -893,6 +997,7 @@ def phase_profile(state, step, data, rng, steps=3) -> float:
     import torch
 
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
 
     images, labels = data
     torch.backends.cudnn.allow_tf32 = False
@@ -928,6 +1033,7 @@ def phase_train():
     from graphlearninglayer_tpu_torch.data import (CHANNEL_STATS,
                                                    synthetic_dataset)
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
     from graphlearninglayer_tpu_torch.train import make_gl_eval_step
 
     spec = synthetic_dataset(num_classes=NUM_CLASSES, image_shape=(32, 32, 3),
@@ -1088,14 +1194,34 @@ def phase_solve_parity():
     check(rel <= 1e-3, f"card/CPU max |pred diff| {rel} <= 1e-3 max |pred|")
 
 
-def p3_bound_ms(m: int, n: int, s: int, used: int, l: int
+def p3_bound_ms(m: int, n: int, counted: int, used: int, l: int
                 ) -> tuple[float, str]:
-    """Least time for P3's work on this graph: val read once, m S 4 bytes;
-    nbr (int64) only on the ``used`` slots (val != 0: a zero slot adds
-    nothing, so its index is never needed), 8 bytes each; x read once,
-    n l 4; out written once, m l 4; 2 l float32 operations a used slot."""
+    """Least time for P3's work on this graph: val (float32) and nbr
+    (int64) on the ``counted`` slots, each row's first count slots, 12
+    bytes each, and the counts (int32), m 4; x read once, n l 4; out
+    written once, m l 4; 2 l float32 operations a used slot (val != 0)."""
+    nbytes = counted * 12 + m * 4 + n * l * 4 + m * l * 4
+    return _bytes_or_ops(nbytes, 2 * used * l)
+
+
+def p3_bound_ms_every_slot(m: int, n: int, s: int, used: int, l: int
+                           ) -> tuple[float, str]:
+    """The previous design's count of P3's work, which read every slot's
+    value: val on all m S slots, nbr on the used ones, x and out once."""
     nbytes = m * s * 4 + used * 8 + n * l * 4 + m * l * 4
-    ops = 2 * used * l
+    return _bytes_or_ops(nbytes, 2 * used * l)
+
+
+def l2_sector_bytes(cols, l: int) -> int:
+    """Bytes of the 32-byte sectors that the rows ``cols`` of a float32
+    (n, l) array span, one gather a row: what a design that fetches each
+    used slot's row of x from L2 moves there at least."""
+    start = cols.long() * (4 * l)
+    sectors = (start + 4 * l - 1) // 32 - start // 32 + 1
+    return 32 * int(sectors.sum())
+
+
+def _bytes_or_ops(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
@@ -1140,6 +1266,11 @@ def phase_ell() -> dict:
     s_slots = ell.nbr.shape[1]
     in_use = ell.val != 0
     used = int(in_use.sum())
+    counted = int(ell.cnt.sum())
+    past = torch.arange(s_slots, device=dev)[None, :] >= ell.cnt[:, None]
+    check(not bool((past & in_use).any()),
+          "no slot past a row's count holds a value")
+    del past
     # the BSR tiles of the same graph, as the default solve plans them
     cache = EvalGraphCache()
     bsr_pred, bsr_iters, bsr_err = transductive_laplace(
@@ -1157,8 +1288,8 @@ def phase_ell() -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for l in P3_CLASSES:
         xl = torch.randn((n, l), generator=gen, device=dev)
-        got = p3.ell_gather_spmm(ell.nbr, ell.val, xl)
-        want = p3.ell_gather_spmm_plain(ell.nbr, ell.val, xl)
+        got = p3.ell_gather_spmm(ell.nbr, ell.val, xl, ell.cnt)
+        want = p3.ell_gather_spmm_plain(ell.nbr, ell.val, xl, ell.cnt)
         lib = torch.sparse.mm(csr, xl)
         full = tg.ell_spmm(ell, xl)
         bsr = bsr_spmm(mat, xl[plan.perm], n)[plan.inv]
@@ -1167,14 +1298,16 @@ def phase_ell() -> dict:
                * xl.abs().max().item())
         err = (got - want).abs().max().item()
         check(err <= bar, f"P3 within {bar} of plain at l={l} ({err})")
-        bound_ms, bound_by = p3_bound_ms(n, n, s_slots, used, l)
-        ms = device_ms(lambda: p3.ell_gather_spmm(ell.nbr, ell.val, xl))
+        bound_ms, bound_by = p3_bound_ms(n, n, counted, used, l)
+        ms = device_ms(lambda: p3.ell_gather_spmm(ell.nbr, ell.val, xl,
+                                                  ell.cnt))
+        sector_bytes = l2_sector_bytes(ell.nbr[in_use], l)
         per_l[l] = dict(
             max_abs_err=err, tol=bar, ms=ms,
             ms_l2_flushed=device_ms(lambda: p3.ell_gather_spmm(
-                ell.nbr, ell.val, xl), reps=20, flush=True),
+                ell.nbr, ell.val, xl, ell.cnt), reps=20, flush=True),
             plain_ms=cuda_ms(lambda: p3.ell_gather_spmm_plain(
-                ell.nbr, ell.val, xl), reps=3, warmup=1),
+                ell.nbr, ell.val, xl, ell.cnt), reps=3, warmup=1),
             library_ms=device_ms(lambda: torch.sparse.mm(csr, xl), reps=20),
             library="torch.sparse.mm of the ELL slots in use as a CSR "
                     "matrix",
@@ -1183,13 +1316,17 @@ def phase_ell() -> dict:
             bsr_spmm="ops/bsr.py::bsr_spmm on the same graph's tiles: the "
                      "port's default matvec, a yardstick, not a library call",
             bsr_vs_ell_spmm_max_abs=(bsr - full).abs().max().item(),
-            bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms)
+            bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+            bound_ms_every_slot=p3_bound_ms_every_slot(
+                n, n, s_slots, used, l)[0],
+            l2_sector_bytes=sector_bytes,
+            l2_sector_bytes_per_ms=sector_bytes / ms)
         del xl, got, want, lib, full, bsr
-    bytes_10 = n * s_slots * 4 + used * 8 + 2 * n * P3_CLASSES[0] * 4
     emit("ell", n=n, d=x.shape[1], k=EVAL_K, cap=cap, slots=s_slots,
-         used_slots=used, padding_share=1.0 - used / (n * s_slots),
-         overflow_edges=ovf, ovf_cap=ovf_cap, matvec_bytes_l10=bytes_10,
-         per_l=per_l)
+         counted_slots=counted, used_slots=used,
+         padding_share=1.0 - used / (n * s_slots),
+         counted_share=counted / (n * s_slots), overflow_edges=ovf,
+         ovf_cap=ovf_cap, per_l=per_l)
     del csr, mat, plan
     torch.cuda.empty_cache()
 
@@ -1219,7 +1356,7 @@ def phase_ell() -> dict:
     check(all(r["p3_launches"] == r["cg_iters"] + 2 for r in runs),
           "P3 launched CG iterations + 2 times a solve")
     return dict(per_l=per_l, launches=launches, slots=s_slots,
-                used_slots=used)
+                used_slots=used, counted_slots=counted)
 
 
 def phase_probes() -> dict:
@@ -1326,6 +1463,7 @@ def phase_transductive_eval(state):
     from graphlearninglayer_tpu_torch.evalx import test_gl_transductive
     from graphlearninglayer_tpu_torch.ops import EvalGraphCache
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
     from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
 
     t0 = time.perf_counter()
@@ -1495,6 +1633,7 @@ def phase_fullysup(train_tf32_ms: float) -> dict:
     import torch
 
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
     from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
     from graphlearninglayer_tpu_torch.train import fullysup
 
@@ -1608,6 +1747,7 @@ def _adv_steps(dataset: str, target: str, rob_or_nat: str, synth: dict,
                                                    select_base_indices,
                                                    synthetic_dataset)
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
     from graphlearninglayer_tpu_torch.train import adversarial_driver as ad
     from graphlearninglayer_tpu_torch.train import create_train_state
 
@@ -1688,6 +1828,7 @@ def phase_adversarial() -> dict:
 
     from graphlearninglayer_tpu_torch.attack import driver as attack_driver
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
     from graphlearninglayer_tpu_torch.train import adversarial_driver as ad
 
     torch.backends.cudnn.allow_tf32 = True    # PyTorch's default
@@ -2101,6 +2242,7 @@ def phase_device_data(train_tf32_ms: float, host: dict) -> dict:
                                                     encode_dataset_resident)
     from graphlearninglayer_tpu_torch.models import BuildNet
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
     from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
     from graphlearninglayer_tpu_torch.train import (create_train_state,
                                                     fullysup,
@@ -2214,6 +2356,7 @@ def phase_compare() -> int:
     from graphlearninglayer_tpu_torch.models import BuildNet
     from graphlearninglayer_tpu_torch.ops import laplace_learning
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
     from graphlearninglayer_tpu_torch.train import (compare_to_mlp,
                                                     create_train_state,
                                                     custom_ce_loss,
@@ -2560,6 +2703,7 @@ def phase_world_of_one() -> dict:
     from graphlearninglayer_tpu_torch.ops import (one_hot_encode,
                                                   transductive_laplace)
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
     from graphlearninglayer_tpu_torch.ops.kernels import ell_spmm as p3
     from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
     from graphlearninglayer_tpu_torch.parallel import (
@@ -2780,24 +2924,26 @@ def phase_entry() -> dict:
     dtype=torch.float64) draws the same weights and images).
 
     The random-weight ResNet's features crowd together: rows whose K-th
-    and (K+1)-th neighbors lie closer in squared distance than float32
-    resolves them (the card's error in d2) take either neighbor, and the
-    two forwards then solve on two graphs.  So the KNN sets must agree on
-    every row outside that tie band (twice the largest d2 error), and the
-    scores are compared once the CPU's float64 op takes the card's
-    neighbor sets.  On such crowded features float32 itself moves the
-    scores by more than the op phase's 1e-4 (d2 from |x|^2 + |y|^2 -
-    2 x.y, as the JAX op forms it, loses most of its digits between close
-    rows), so the bar is ENTRY_PRED_TOL, fixed from the H100 readings:
-    1.155e-4 for the card, 2.03e-4 for the port's float32 op on the CPU on
-    the card's features and graph, which is printed beside it.  The
-    free-running CPU forward's difference, the features' and the rows in
-    the band are reported."""
+    and (K+1)-th neighbors lie closer in squared distance than the card's
+    float32 ranking resolves them (|x|^2 + |y|^2 - 2 x.y, whose error
+    against float64 is measured at the card's lists) take either
+    neighbor, and the two forwards then solve on two graphs.  So the KNN
+    sets must agree on every row outside that tie band (twice the largest
+    ranking error), and the scores are compared once the CPU's float64 op
+    takes the card's neighbor sets.  W reads each kept edge's d2 from the
+    rows' difference, whose float32 error (d2_max_abs_err) is far below
+    the ranking's; the rows within twice it are counted too
+    (rows_in_value_band).  The bar is ENTRY_PRED_TOL, fixed from the H100
+    readings when W read the ranking's d2: 1.155e-4 for the card, 2.03e-4
+    for the port's float32 op on the CPU on the card's features and graph,
+    which is printed beside it.  The free-running CPU forward's
+    difference and the features' are reported."""
     import torch
 
     from graphlearninglayer_tpu_torch.entry import entry
     from graphlearninglayer_tpu_torch.ops import dense_mode, laplace_learning
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
 
     knn = dense_mode.knn
     seen = {}
@@ -2842,9 +2988,13 @@ def phase_entry() -> dict:
     f64 = feats64[0]
     d2 = dense_mode.pairwise_dist2(f64, f64)
     card_nbr = seen["card"][0].cpu()
+    # the card's ranking d2 (float32 Gram form) at its lists
+    ranked32 = dense_mode.pairwise_dist2(feats[0], feats[0]).gather(
+        1, card_nbr.to(feats[0].device)).double().cpu()
     # the CPU's float64 op, and its float32 op on the card's features, on
     # the card's neighbor sets
-    dense_mode.knn = lambda x, k, d2=None: (card_nbr, d2.gather(1, card_nbr))
+    dense_mode.knn = lambda x, k, d2=None: (card_nbr,
+                                            kept_dist2(x, x, card_nbr))
     try:
         y = torch.nn.functional.one_hot(args64[2], NUM_CLASSES).double()
         pinned = laplace_learning(f64, y, tau=TAU, epsilon="auto", k=K)
@@ -2857,15 +3007,17 @@ def phase_entry() -> dict:
     err32 = (cpu32.double() - pinned).abs().max().item()
     tol = ENTRY_PRED_TOL
     err_free = (host - free).abs().max().item()
+    exact = kept_dist2(f64, f64, card_nbr)[:, 1:]
     d2_err = (seen["card"][1].double().cpu()[:, 1:]
-              - d2.gather(1, card_nbr)[:, 1:]).abs().max().item()
+              - exact).abs().max().item()
+    rank_err = (ranked32[:, 1:] - exact).abs().max().item()
     cpu_nbr = seen["cpu"][0]
     differ = (card_nbr.sort(1).values != cpu_nbr.sort(1).values).any(1)
     ranked = d2.clone()
     ranked.fill_diagonal_(-1.0)
     near = torch.topk(ranked, K + 1, dim=1, largest=False).values
     gap = near[:, K] - near[:, K - 1]
-    band = 2.0 * d2_err
+    band = 2.0 * rank_err
     emit("entry", n=N_BASE + N_BATCH, k=K, tau=TAU, model="resnet18",
          cudnn_tf32=False, matmul_tf32=False,
          scores_shape=list(scores.shape), forward_ms=ms,
@@ -2873,8 +3025,10 @@ def phase_entry() -> dict:
          pred_max_abs_err=err, pred_tol=tol,
          cpu_f32_pred_max_abs_err=err32, pred_max_abs_err_free=err_free,
          feat_max_abs_err=(feats[0].double().cpu() - f64).abs().max().item(),
-         d2_max_abs_err=d2_err, tie_band=band,
-         rows_in_band=int((gap <= band).sum()),
+         d2_max_abs_err=d2_err, rank_d2_max_abs_err=rank_err,
+         tie_band=band, rows_in_band=int((gap <= band).sum()),
+         value_band=2.0 * d2_err,
+         rows_in_value_band=int((gap <= 2.0 * d2_err).sum()),
          rows_knn_differ=int(differ.sum()),
          min_knn_gap=gap.min().item(), cpu_f64_forward_s=cpu_s)
     check(bool(torch.isfinite(scores).all()), "entry() scores finite")
@@ -2903,7 +3057,8 @@ DRYRUN_EVAL_N = {1: 25, 2: 42}
 DRYRUN_K1 = dict(driver=6, solves=0, attack=2)
 # float32 ulps of d2 (of |x_i|^2 + |x_j|^2) that K1 and its plain version
 # may differ by together at the dry run's shapes (dryrun_kernels): each
-# forms d2 = |x|^2 + |y|^2 - 2 x.y in float32 within about 4
+# forms a kept entry's d2 from the rows' difference in float32, within
+# fewer than 4
 K1_D2_ULPS = 8
 DRYRUN_K2 = dict(driver=4, solves=2, attack=0)
 
@@ -2936,6 +3091,7 @@ def dryrun_kernels(n: int) -> dict:
     from graphlearninglayer_tpu_torch.entry import attack_network, dryrun_draws
     from graphlearninglayer_tpu_torch.ops.dense_mode import build_dense_graph
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
     from graphlearninglayer_tpu_torch.ops.kernels import knn_topk as k2
 
     d = dryrun_draws(n)
@@ -3085,6 +3241,7 @@ def _attack_points(mesh=None) -> dict:
 
     from graphlearninglayer_tpu_torch.attack import fgsm
     from graphlearninglayer_tpu_torch.ops.kernels import affinity as k1
+    from graphlearninglayer_tpu_torch.ops.kernels.knn_topk import kept_dist2
 
     dev = torch.device("cuda") if mesh is None else mesh.device
     a = _attack_setup(dev)
@@ -3348,9 +3505,13 @@ def main() -> int:
         "ms_l2_flushed": p3_main["ms_l2_flushed"],
         "bsr_spmm_ms": p3_main["bsr_spmm_ms"],
         "slots": ell["slots"],
+        "counted_slots": ell["counted_slots"],
         "used_slots": ell["used_slots"],
+        "bound_ms_every_slot": p3_main["bound_ms_every_slot"],
+        "l2_sector_bytes": p3_main["l2_sector_bytes"],
         "l100": {key: ell["per_l"][100][key] for key in (
-            "ms", "plain_ms", "library_ms", "bsr_spmm_ms", "bound_ms")},
+            "ms", "ms_l2_flushed", "plain_ms", "library_ms", "bsr_spmm_ms",
+            "bound_ms", "bound_ms_every_slot", "l2_sector_bytes")},
         # the row-sharded solves: the world of one's two, and each dry-run
         # rank's
         "launches_sharded": {"world_of_one_row_sharded": one["p3"]},

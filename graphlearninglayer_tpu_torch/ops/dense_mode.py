@@ -37,7 +37,10 @@ class DenseGraph(NamedTuple):
            (m_raw[i, nbr[i, :]] = 1).  The union symmetrization and the
            self/zero-distance exclusions are applied lazily (``mask``) or
            inside kernel K1.
-    d2:    (n, n) float: full squared-distance matrix.
+    d2:    (n, n) float: squared distances; on the KNN union's support
+           (each (i, nbr[i]) and (nbr[i], i)) from the endpoints'
+           difference, as every kept edge's d2 is, elsewhere the Gram
+           form that ranked the neighbors.
     eps:   (n,) float: per-node bandwidth (k-th NN distance in auto mode).
     nbr:   (n, k) int64: KNN lists (kept for the auto-eps selector).
     """
@@ -69,6 +72,12 @@ def build_dense_graph(x: torch.Tensor, k: int, epsilon="auto") -> DenseGraph:
     n = x.shape[0]
     d2 = pairwise_dist2(x, x)
     nbr, dist2 = knn(x, k, d2=d2)
+    # the kept edges' d2, in both directions of the union, from the
+    # endpoints' difference (knn's dist2): W, the zero-distance test and
+    # the auto-eps backward read these, and a coincident pair is at 0
+    rows = torch.arange(n, device=x.device)[:, None].expand_as(nbr)
+    d2[rows, nbr] = dist2
+    d2[nbr, rows] = dist2
     m_raw = torch.zeros((n, n), dtype=x.dtype, device=x.device)
     m_raw.scatter_(1, nbr, 1.0)
 

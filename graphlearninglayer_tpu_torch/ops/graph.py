@@ -12,10 +12,14 @@ that encodes the union-symmetrized graph:
     (reciprocal pair), so that accumulating both endpoint contributions of
     every directed edge gives the symmetric matrix exactly;
   * self edges and zero-distance edges get ``coef = 0`` (the reference drops
-    explicit zeros).  Off the eval's tiled route an edge's distance is taken
-    from the difference of its endpoints (:func:`edge_dist2`), so that only
-    equal rows count as coincident; the JAX package keeps the search's
-    |x|^2 + |y|^2 - 2 x.y, which at float32 also zeroes close pairs.
+    explicit zeros).  Every KNN route returns an edge's distance from the
+    difference of its endpoints (``kernels.knn_topk.kept_dist2``), so that
+    only equal rows count as coincident; the JAX package keeps the search's
+    |x|^2 + |y|^2 - 2 x.y, which at float32 also zeroes close pairs.  The
+    differences lose nothing to cancellation: at float32, unit rows whose
+    d2 is below about 1e-7 (a barely trained encoder's features) would
+    come out at 0 in the Gram form, leaving a node without edges and Luu
+    singular at tau = 0.
 
 Affinity values: W_ij = exp(-4 d_ij^2 / (eps_i eps_j)) and
 V_ij = -8 W_ij / (eps_i eps_j), with eps_i the k-th-neighbor distance in
@@ -42,7 +46,6 @@ __all__ = [
     "BatchGraph",
     "build_graph",
     "graph_from_knn",
-    "edge_dist2",
     "pad_far_rows",
     "edge_weights",
     "sym_rowsum",
@@ -60,8 +63,6 @@ __all__ = [
 
 # rows per chunk of the reciprocal-edge test (a (chunk, k, k) gather)
 _RECIP_CHUNK = 8192
-# rows per chunk of edge_dist2 (a (chunk, k, d) gather)
-_DIST_CHUNK = 2048
 
 
 class BatchGraph(NamedTuple):
@@ -102,11 +103,7 @@ def build_graph(x: torch.Tensor, k: int, epsilon="auto", *,
 
     ``epsilon``: 'auto' for the self-tuning bandwidth, else a positive
     float."""
-    if tiled:
-        nbr, dist2 = knn_tiled(x, k, block)
-    else:
-        nbr, _ = knn(x, k)
-        dist2 = edge_dist2(x, nbr)
+    nbr, dist2 = knn_tiled(x, k, block) if tiled else knn(x, k)
     return graph_from_knn(nbr, dist2, epsilon, dtype=x.dtype)
 
 
@@ -121,22 +118,6 @@ def pad_far_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
     fill = far * (1.0 + torch.arange(pad, dtype=x.dtype,
                                      device=x.device)[:, None])
     return torch.cat([x, fill.expand(pad, x.shape[1])])
-
-
-def edge_dist2(x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
-    """|x_i - x_j|^2 along each KNN edge (n, k), from the differences.
-
-    The search ranks by |x_i|^2 + |x_j|^2 - 2 x_i.x_j, which cancels where
-    points lie close together: at float32, unit rows whose d2 is below
-    about 1e-7 (a barely trained encoder's features) come out at 0, and
-    graph_from_knn would drop their edges as coincident points, leaving a
-    node without edges and Luu singular at tau = 0.  The differences lose
-    nothing, so d2 is 0 here only for equal rows, and the forward's
-    distances are those that the edge-mode backward differentiates."""
-    return torch.cat([
-        (x[s:s + _DIST_CHUNK, None, :] - x[nbr[s:s + _DIST_CHUNK]])
-        .square().sum(dim=-1)
-        for s in range(0, x.shape[0], _DIST_CHUNK)])
 
 
 def graph_from_knn(nbr: torch.Tensor, dist2: torch.Tensor, epsilon="auto", *,
@@ -223,6 +204,9 @@ class SymEll(NamedTuple):
           edge, n*k on padding slots (for :func:`ell_reweight`).
     ovf_dst/ovf_src/ovf_val/ovf_edge: (E_ovf,) overflow entries
           (A[dst, src] = val); dst == n and val == 0 on padding entries.
+    cnt:  (n,) int32: each row's slots in use, k + min(in-degree, cap):
+          its k out-edges (masked ones inside, at 0), then its in-edges,
+          packed to the front; every slot past it is padding.
     """
 
     nbr: torch.Tensor
@@ -232,6 +216,7 @@ class SymEll(NamedTuple):
     ovf_src: torch.Tensor
     ovf_val: torch.Tensor
     ovf_edge: torch.Tensor
+    cnt: torch.Tensor
 
 
 def _in_degrees(g: BatchGraph) -> torch.Tensor:
@@ -291,6 +276,8 @@ def build_sym_ell(g: BatchGraph, vals: torch.Tensor, cap: int,
     in_nbr = scatter(0, src_s)
     in_val = scatter(0, c_s)
     in_edge = scatter(e_cnt, order)
+    # each row's in-slots in use, min(in-degree, cap), after its k out-slots
+    in_used = torch.bincount(row, minlength=n + 1)[:n].to(torch.int32)
 
     if ovf_cap > 0:
         # pack the beyond-cap edges of hub rows to the front, keep ovf_cap
@@ -313,6 +300,7 @@ def build_sym_ell(g: BatchGraph, vals: torch.Tensor, cap: int,
         val=torch.cat([g.coef * vals, in_val], dim=1),
         edge=torch.cat([out_edge, in_edge], dim=1),
         ovf_dst=ovf_dst, ovf_src=ovf_src, ovf_val=ovf_val, ovf_edge=ovf_edge,
+        cnt=in_used + k,
     )
 
 
@@ -341,11 +329,11 @@ def ell_rowsum(ell: SymEll) -> torch.Tensor:
 def ell_spmm(ell: SymEll, x: torch.Tensor) -> torch.Tensor:
     """A @ x with A the symmetric ELL(+COO) matrix; x: (n, l) -> (n, l).
     The slots' sum is :func:`kernels.ell_spmm.ell_gather_spmm` (kernel P3
-    on the card); hub edges beyond the slots are applied with one
-    scatter-add."""
+    on the card) over each row's ``cnt`` slots; hub edges beyond the slots
+    are applied with one scatter-add."""
     dt = torch.promote_types(ell.val.dtype, x.dtype)
     x = x.to(dt).contiguous()
-    out = ell_gather_spmm(ell.nbr, ell.val.to(dt), x)
+    out = ell_gather_spmm(ell.nbr, ell.val.to(dt), x, ell.cnt)
     if ell.ovf_dst.shape[0]:
         out = _add_overflow(out, ell, ell.ovf_val[:, None] * x[ell.ovf_src])
     return out

@@ -4,10 +4,13 @@
 
     W[i, j] = exp(-4 d2_ij / (eps_i eps_j)) * max(M, M^T)[i, j]
               * [i != j] * [d2_ij > 0],
-    d2_ij   = max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0)
+    d2_ij   = sum_f (x_i,f - x_j,f)^2   where max(M, M^T)[i, j] != 0
 
 from features ``x`` (n, d), bandwidths ``eps`` (n,) and the RAW directed KNN
-indicator ``m_raw`` (n, n) (``m_raw[i, nbr[i]] = 1``).  It replaces the Pallas
+indicator ``m_raw`` (n, n) (``m_raw[i, nbr[i]] = 1``).  A kept entry's d2
+is formed from the endpoints' difference, as every KNN route of the port
+returns it, so a coincident pair is at exactly 0 and dropped; the other
+entries are 0 whatever their distance.  It replaces the Pallas
 TPU kernel ``graphlearninglayer_tpu/ops/kernels/affinity.py::
 fused_affinity_sym``.
 
@@ -19,13 +22,15 @@ fused_affinity_sym``.
 
 ``fused_affinity(x, eps, mask)`` (K3) returns
 
-    W[i, j] = exp(-4 d2_ij / (eps_i eps_j)) * mask[i, j]
+    W[i, j] = exp(-4 d2_ij / (eps_i eps_j)) * mask[i, j],
+    d2_ij   = max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0)
 
 for a precomputed {0, 1} ``mask`` (n, n), with no symmetrization and no
-self or zero-distance exclusion.  It replaces the Pallas TPU kernel
-``graphlearninglayer_tpu/ops/kernels/affinity.py::fused_affinity``, which no
-path of the JAX package calls (its tests only); no path of the port calls it
-either.  Both kernels share one CUDA source, a template flag apart.
+self or zero-distance exclusion, as the JAX kernel has it.  It replaces the
+Pallas TPU kernel ``graphlearninglayer_tpu/ops/kernels/affinity.py::
+fused_affinity``, which no path of the JAX package calls (its tests only);
+no path of the port calls it either.  Both kernels live in one CUDA source
+and share its tile order, copies of M and stores of W.
 
 ``fused_affinity_sym.launches`` and ``fused_affinity.launches`` count kernel
 launches; the plain versions never move them.
@@ -45,13 +50,16 @@ __all__ = ["fused_affinity_sym", "fused_affinity_sym_plain", "fused_affinity",
 def fused_affinity_sym_plain(x: torch.Tensor, eps: torch.Tensor,
                              m_raw: torch.Tensor) -> torch.Tensor:
     """K1 in plain PyTorch: the CPU path, and the yardstick the kernel is
-    held against on the card."""
+    held against on the card.  The kept entries' d2 come from the
+    endpoints' difference, one (d,) row difference an entry."""
     n = x.shape[0]
-    sq = torch.sum(x * x, dim=1)
-    d2 = (sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)).clamp_min(0.0)
     mask = torch.maximum(m_raw, m_raw.T)
-    off_diag = ~torch.eye(n, dtype=torch.bool, device=x.device)
-    mask = torch.where(off_diag & (d2 > 0.0), mask, torch.zeros_like(mask))
+    mask = mask.masked_fill(torch.eye(n, dtype=torch.bool, device=x.device),
+                            0.0)
+    i, j = torch.nonzero(mask, as_tuple=True)
+    d2 = torch.zeros((n, n), dtype=x.dtype, device=x.device)
+    d2[i, j] = (x[i] - x[j]).square().sum(dim=-1)
+    mask = torch.where(d2 > 0.0, mask, torch.zeros_like(mask))
     inv = 1.0 / (eps[:, None] * eps[None, :])
     return torch.exp(-4.0 * d2 * inv) * mask
 

@@ -6,29 +6,49 @@
 //   (kernel body _affinity_sym_kernel).
 // It computes, for x (n, d) f32, eps (n,) f32 and the raw directed KNN
 // indicator M (n, n) f32 in {0, 1}:
-//   d2[i,j] = max(|x_i|^2 + |x_j|^2 - 2 <x_i, x_j>, 0)
 //   W[i,j]  = exp(-4 d2[i,j] / (eps_i eps_j)) * max(M[i,j], M[j,i])
 //             * [i != j] * [d2[i,j] > 0]
+//   d2[i,j] = sum_f (x_i,f - x_j,f)^2   on the kept entries, those where
+//             max(M[i,j], M[j,i]) != 0 and i != j (W is 0 elsewhere),
+// the d2 rule of every KNN route of the port: a coincident pair is at
+// exactly 0 and dropped, where |x_i|^2 + |x_j|^2 - 2 <x_i, x_j> can leave
+// a rounding residue.
 // K3 replaces
 //   graphlearninglayer_tpu/ops/kernels/affinity.py::fused_affinity
 //   (kernel body _affinity_kernel):
-//   W[i,j]  = exp(-4 d2[i,j] / (eps_i eps_j)) * M[i,j]
-// with no symmetrization and no self or zero-distance exclusion.  One
-// template flag selects between the two; the tile code is shared.
+//   W[i,j]  = exp(-4 d2[i,j] / (eps_i eps_j)) * M[i,j],
+//   d2[i,j] = max(|x_i|^2 + |x_j|^2 - 2 <x_i, x_j>, 0)
+// with no symmetrization and no self or zero-distance exclusion, as the
+// JAX kernel has it.  They share the tile order, the copies of M and the
+// stores of W.
 // No n x n distance matrix and no symmetrized mask is written to device
 // memory: the only n x n traffic is reading M and writing W.
 //
 // Bound on an H100 SXM at the training op's shape (n = 1500, d = 128):
 //   bytes:      M read once (9.0 MB) + W written (9.0 MB) + x and eps
 //               (0.8 MB) = 18.8 MB; at 3.35 TB/s that is 5.6 us;
-//   operations: d2 is symmetric, so both functions need only the upper
-//               triangle of the Gram matrix, n (n + 1) d = 0.29 GFLOP of f32
-//               FMA work; at the 67 TFLOP/s non-tensor f32 rate that is
-//               4.3 us.
+//   operations: K3 needs the upper triangle of the Gram matrix, n (n + 1) d
+//               = 0.29 GFLOP of f32 FMA work, 4.3 us at the 67 TFLOP/s
+//               non-tensor f32 rate; K1 only its kept entries' differences,
+//               3 d operations each (at most 2 k n of them, 0.03 GFLOP).
 // So both are bound by bytes.
 //
-// Design (Hopper, plain f32 FMA: no TF32, no tensor cores, so the distances
-// match a full-f32 reference):
+// K1's design: one block of 128 threads per pair of 48-row tiles (bi <= bj)
+// of the upper triangle, as K3's below, copies both M tiles with cp.async,
+// and turns each entry into max(M[i, j], M[j, i]) or 0 in place.  The kept
+// entries (i != j and that union not 0: about 2k / n of a tile, 77 of a
+// 48 x 48 tile at n = 1500, k = 25) are queued in shared memory, and
+// groups of kDiffLanes lanes form each one's d2 from the two rows of x,
+// read from L2, kDiffEntries entries a group at once: a lane sums its
+// features' squared differences as one fmaf chain and the group adds its
+// lanes in a fixed butterfly, so W is deterministic and, since
+// (a - b)^2 = (b - a)^2, exactly symmetric.  No
+// Gram tile is formed: W is 0 off the kept entries whatever their distance.
+// 25 KB of shared memory a block; four blocks an SM (128 registers a
+// thread, for the kept entries' loads in flight).
+//
+// K3's design (Hopper, plain f32 FMA: no TF32, no tensor cores, so the
+// distances match a full-f32 reference):
 //   1. One block of 128 threads per pair of 48-row tiles (bi <= bj) of the
 //      upper triangle: at n = 1500, 32 tile rows and 528 blocks, four an SM
 //      (48.4 KB of shared memory and 128 registers a thread), so one even
@@ -36,8 +56,8 @@
 //      SMs with a third block and ran slower on the card.)  The block forms
 //      the Gram tile <x_i, x_j> once and writes W[i-tile, j-tile] and, off
 //      the diagonal, W[j-tile, i-tile]; a diagonal tile is written once.
-//      K1's W is exactly symmetric; K3's two halves take mask[i, j] and
-//      mask[j, i] times the one symmetric exp(-4 d2 / (eps_i eps_j)).
+//      The two halves take mask[i, j] and mask[j, i] times the one
+//      symmetric exp(-4 d2 / (eps_i eps_j)).
 //   2. 32-feature slices of both x tiles stream through a cp.async double
 //      buffer, row-major with rows padded to 36 floats.  Two groups of 64
 //      threads split each slice's features 16 / 16; a thread keeps a 6 x 6
@@ -53,18 +73,18 @@
 //      both M tiles into W in place in shared memory (the transposed entry
 //      is the same thread's), with 1 / eps precomputed a row, and the block
 //      stores both tiles row by row as float4, coalesced.
-//   4. Any n and d, no host padding: the copies zero-fill rows and features
+//   4. Any n and d, no host padding (K1 too): the copies zero-fill rows and features
 //      past n and d; 16-byte copies of x need d % 4 == 0, those of M and the
 //      float4 stores of W n % 4 == 0 and 16-byte alignment, else the kernel
 //      takes 4-byte copies and scalar stores.
 //
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, k1_turns.py;
 // PERF.md): see PERF.md for K1's and K3's times against the bound and
-// against the previous design (32 x 32 tiles, both triangles, 4 outputs a
-// thread, scalar shared loads).  What still holds them back: every block
-// re-reads both x tiles from L2 (26 MB of copies at n = 1500, against 9 MB
-// each of M and W), and issuing the copies, the epilogue and the stores sit
-// beside the FMA loop rather than under it.
+// against the previous designs (K1 with K3's Gram tile; 32 x 32 tiles, both
+// triangles, 4 outputs a thread, scalar shared loads).  What still holds
+// K3 back: every block re-reads both x tiles from L2 (26 MB of copies at
+// n = 1500, against 9 MB each of M and W), and issuing the copies, the
+// epilogue and the stores sit beside the FMA loop rather than under it.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -83,15 +103,24 @@ constexpr int kHalf = kDK / kGroups;     // a group's features of a stage
 constexpr int kXStride = kDK + 4;        // padded row of a staged x slice
 constexpr int kMStride = kTile + 4;      // padded row of a staged M/W tile
 constexpr int kBlocksPerSM = 4;
+constexpr int kDiffLanes = 8;            // lanes a kept entry's d2 pass
+constexpr int kDiffEntries = 4;          // a group's entries in flight
 
-// Shared memory in floats, in the order of its carve-up: two stages of the
-// x slices of both tiles (the i-tile's rows, then the j-tile's), the two M
-// tiles (which become the two W tiles), the norms and the bandwidths of
-// both tiles: 48.4 KB.
+constexpr int kSymBlocksPerSM = 4;
+
+// K3's shared memory in floats, in the order of its carve-up: two stages of
+// the x slices of both tiles (the i-tile's rows, then the j-tile's), the
+// two M tiles (which become the two W tiles), the norms and the bandwidths
+// of both tiles: 48.4 KB.
 constexpr int kXFloats = 2 * kTile * kXStride;  // one stage
 constexpr int kMFloats = kTile * kMStride;      // one tile
 constexpr size_t kSmemBytes =
     sizeof(float) * (2 * kXFloats + 2 * kMFloats + 4 * kTile);
+// K1's: the two M tiles, the inverse bandwidths of both tiles, the queue of
+// kept entries (kTile^2 16-bit positions) and its length: 25.0 KB.
+constexpr size_t kSymSmemBytes =
+    sizeof(float) * (2 * kMFloats + 2 * kTile) +
+    sizeof(unsigned short) * kTile * kTile + 16;
 
 static_assert(kHalf % 4 == 0 && kXStride % 4 == 0 && kMStride % 4 == 0,
               "16-byte aligned rows for cp.async and float4");
@@ -103,6 +132,11 @@ static_assert(kTile * kMStride <= 2 * kXFloats,
               "the partial tile exchange fits the x buffers");
 static_assert(kBlocksPerSM * (kSmemBytes + 1024) <= 228 * 1024,
               "kBlocksPerSM blocks fit an SM's shared memory");
+static_assert(kSymBlocksPerSM * (kSymSmemBytes + 1024) <= 228 * 1024,
+              "kSymBlocksPerSM blocks fit an SM's shared memory");
+static_assert(kTile * kTile <= 65536, "a kept entry's position is 16-bit");
+static_assert((kTile * kTile) % kThreads == 0,
+              "every lane of a warp takes each step of K1's entry loop");
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
                                            bool valid) {
@@ -245,7 +279,150 @@ __device__ __forceinline__ void store_tile(const float* src,
   }
 }
 
-template <bool kSym>
+// K1's d2 pass over its queue of ``kept`` entries (positions ri * kTile +
+// cj in the tiles): a group of kDiffLanes lanes an entry, kDiffEntries
+// entries a group at once (their loads issued together, so a group waits
+// on L2 once for all of them), each lane the features 4 j + 4 kDiffLanes t
+// (16-byte loads) or j + kDiffLanes t, as one fmaf chain an entry; the
+// group's butterfly sums them.  Writes W = exp(-4 d2 / (eps_i eps_j)) m,
+// 0 where d2 == 0, to both tiles.
+__device__ __forceinline__ void kept_d2_pass(
+    const unsigned short* queue, int kept, const float* __restrict__ x,
+    const float* re, float* mij, float* mji, int i0, int j0, int d,
+    bool vec_x, int tid) {
+  constexpr int kGroupsPerBlock = kThreads / kDiffLanes;
+  constexpr int kStep = kGroupsPerBlock * kDiffEntries;
+  const int grp = tid / kDiffLanes, j = tid % kDiffLanes;
+  // every lane of a warp runs the butterflies; entries past the queue
+  // add 0 and write nothing
+  for (int base = 0; base < kept; base += kStep) {
+    int pos[kDiffEntries];
+    const float* a[kDiffEntries];
+    const float* b[kDiffEntries];
+    float s[kDiffEntries];
+#pragma unroll
+    for (int q = 0; q < kDiffEntries; ++q) {
+      const int e = base + q * kGroupsPerBlock + grp;
+      pos[q] = e < kept ? queue[e] : -1;
+      const int p = pos[q] < 0 ? 0 : pos[q];
+      a[q] = x + (size_t)(i0 + p / kTile) * d;
+      b[q] = x + (size_t)(j0 + p % kTile) * d;
+      s[q] = 0.f;
+    }
+    if (vec_x) {
+#pragma unroll 2
+      for (int f = 4 * j; f < d; f += 4 * kDiffLanes) {
+        float4 u[kDiffEntries], v[kDiffEntries];
+#pragma unroll
+        for (int q = 0; q < kDiffEntries; ++q) {
+          if (pos[q] >= 0) {
+            u[q] = __ldg(reinterpret_cast<const float4*>(a[q] + f));
+            v[q] = __ldg(reinterpret_cast<const float4*>(b[q] + f));
+          } else {
+            u[q] = v[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kDiffEntries; ++q) {
+          const float t0 = u[q].x - v[q].x, t1 = u[q].y - v[q].y,
+                      t2 = u[q].z - v[q].z, t3 = u[q].w - v[q].w;
+          s[q] = fmaf(t0, t0, s[q]);
+          s[q] = fmaf(t1, t1, s[q]);
+          s[q] = fmaf(t2, t2, s[q]);
+          s[q] = fmaf(t3, t3, s[q]);
+        }
+      }
+    } else {
+      for (int f = j; f < d; f += kDiffLanes) {
+        float t[kDiffEntries];
+#pragma unroll
+        for (int q = 0; q < kDiffEntries; ++q) {
+          t[q] = pos[q] >= 0 ? __ldg(a[q] + f) - __ldg(b[q] + f) : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < kDiffEntries; ++q) s[q] = fmaf(t[q], t[q], s[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kDiffEntries; ++q) {
+#pragma unroll
+      for (int off = 1; off < kDiffLanes; off <<= 1) {
+        s[q] += __shfl_xor_sync(0xffffffffu, s[q], off);
+      }
+      if (pos[q] >= 0 && j == 0) {
+        const int ri = pos[q] / kTile, cj = pos[q] % kTile;
+        float* up = mij + ri * kMStride + cj;  // W[i, j]
+        float* lo = mji + cj * kMStride + ri;  // W[j, i]
+        const float e2 = expf(-4.f * s[q] * (re[ri] * re[kTile + cj]));
+        const float w = s[q] > 0.f ? e2 * *up : 0.f;
+        *up = w;
+        *lo = w;
+      }
+    }
+  }
+}
+
+// K1: see the header.
+__global__ void __launch_bounds__(kThreads, kSymBlocksPerSM)
+affinity_sym_kernel(const float* __restrict__ x,
+                    const float* __restrict__ eps,
+                    const float* __restrict__ m, float* __restrict__ w,
+                    int n, int d, int tiles, int vec_x, int vec_n) {
+  extern __shared__ __align__(16) float smem[];
+  float* mij = smem;                // M[i-tile, j-tile], then W's
+  float* mji = mij + kMFloats;      // M[j-tile, i-tile], then W's
+  float* re = mji + kMFloats;       // [2 kTile] eps, then 1 / eps
+  unsigned short* queue = reinterpret_cast<unsigned short*>(re + 2 * kTile);
+  int* kept = reinterpret_cast<int*>(queue + kTile * kTile);
+
+  int bi, bj;
+  tile_pair(blockIdx.x, tiles, bi, bj);
+  const int i0 = bi * kTile, j0 = bj * kTile;
+  const int tid = threadIdx.x;
+  const int my_row = tile_row(tid, i0, j0);
+  if (tid < 2 * kTile) {
+    cp_async4(re + tid, my_row < n ? eps + my_row : eps, my_row < n);
+  }
+  if (tid == 0) *kept = 0;
+  if (vec_n) {
+    copy_m_share<true>(0, 1, m, mij, mji, i0, j0, n, tid);
+  } else {
+    copy_m_share<false>(0, 1, m, mij, mji, i0, j0, n, tid);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();  // both M tiles, eps and the queue's length
+  if (tid < 2 * kTile) re[tid] = my_row < n ? 1.f / re[tid] : 0.f;
+
+  // each entry of both tiles becomes max(M[i, j], M[j, i]) where kept, else
+  // 0; entry (ri, cj) alone reads and writes mij[ri][cj] and mji[cj][ri]
+  for (int p = tid; p < kTile * kTile; p += kThreads) {
+    const int ri = p / kTile, cj = p % kTile;
+    float* up = mij + ri * kMStride + cj;  // W[i, j]
+    float* lo = mji + cj * kMStride + ri;  // W[j, i]
+    const float v = fmaxf(*up, *lo);
+    const bool keep = i0 + ri != j0 + cj && v != 0.f;
+    // one atomic a warp: kTile^2 is a multiple of kThreads, so every lane
+    // of the warp is here
+    const unsigned mask = __ballot_sync(0xffffffffu, keep);
+    const int lane = tid & 31;
+    int slot = 0;
+    if (lane == 0 && mask != 0u) slot = atomicAdd(kept, __popc(mask));
+    slot = __shfl_sync(0xffffffffu, slot, 0) +
+           __popc(mask & ((1u << lane) - 1u));
+    if (keep) queue[slot] = static_cast<unsigned short>(p);
+    *up = keep ? v : 0.f;
+    *lo = keep ? v : 0.f;
+  }
+  __syncthreads();  // the queue and 1 / eps
+  kept_d2_pass(queue, *kept, x, re, mij, mji, i0, j0, d, vec_x, tid);
+  __syncthreads();
+
+  store_tile(mij, w, i0, j0, n, vec_n, tid);
+  if (bi != bj) store_tile(mji, w, j0, i0, n, vec_n, tid);
+}
+
+// K3: see the header.
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 affinity_tile_kernel(const float* __restrict__ x,
                      const float* __restrict__ eps,
@@ -373,15 +550,8 @@ affinity_tile_kernel(const float* __restrict__ x,
       const float e = expf(-4.f * d2 * (re_i * re[kTile + cj]));
       float* up = mij + ri * kMStride + cj;  // W[i, j]
       float* lo = mji + cj * kMStride + ri;  // W[j, i]
-      if (kSym) {
-        const float v = e * fmaxf(*up, *lo);
-        const bool keep = i0 + ri != j0 + cj && d2 > 0.f;
-        *up = keep ? v : 0.f;
-        *lo = keep ? v : 0.f;
-      } else {
-        *up = e * *up;
-        *lo = e * *lo;
-      }
+      *up = e * *up;
+      *lo = e * *lo;
     }
   }
   __syncthreads();
@@ -394,29 +564,27 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <bool kSym>
-int launch(const float* x, const float* eps, const float* m, float* w, int n,
-           int d, void* stream) {
+template <typename Kernel>
+int launch(Kernel kernel, size_t smem, const float* x, const float* eps,
+           const float* m, float* w, int n, int d, void* stream) {
   if (n < 0 || d < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const long long tiles = (n + kTile - 1) / kTile;
   const long long blocks = tiles * (tiles + 1) / 2;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      affinity_tile_kernel<kSym>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(affinity_tile_kernel<kSym>,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec_x = d % 4 == 0 && aligned16(x);
   const int vec_n = n % 4 == 0 && aligned16(m) && aligned16(w);
-  affinity_tile_kernel<kSym>
-      <<<static_cast<unsigned>(blocks), kThreads, kSmemBytes,
-         static_cast<cudaStream_t>(stream)>>>(x, eps, m, w, n, d,
-                                              static_cast<int>(tiles), vec_x,
-                                              vec_n);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      x, eps, m, w, n, d, static_cast<int>(tiles), vec_x, vec_n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -429,11 +597,13 @@ int launch(const float* x, const float* eps, const float* m, float* w, int n,
 extern "C" int gll_affinity_sym_f32(const float* x, const float* eps,
                                     const float* m_raw, float* w, int n,
                                     int d, void* stream) {
-  return launch<true>(x, eps, m_raw, w, n, d, stream);
+  return launch(affinity_sym_kernel, kSymSmemBytes, x, eps, m_raw, w, n, d,
+                stream);
 }
 
 extern "C" int gll_affinity_f32(const float* x, const float* eps,
                                 const float* mask, float* w, int n, int d,
                                 void* stream) {
-  return launch<false>(x, eps, mask, w, n, d, stream);
+  return launch(affinity_tile_kernel, kSmemBytes, x, eps, mask, w, n, d,
+                stream);
 }

@@ -6,9 +6,12 @@
 // For x (n, d) f32 it returns, for every row i, the k (<= 64) smallest
 //   d2[i,j] = max(|x_i|^2 + |x_j|^2 - 2 <x_i, x_j>, 0)
 // in ascending order, with self pinned first (d2[i,i] := -1 during
-// selection) and ties kept at the lower index, as nbr (n, k) int64 and
-// dist2 (n, k) f32 clamped at 0.  No distance panel is written to device
-// memory.  A row range [r0, r1) returns the lists of those query rows
+// selection) and ties kept at the lower index, as nbr (n, k) int64, and
+// the kept edges' squared distances as dist2 (n, k) f32, each formed again
+// from the endpoints' difference, sum_f (x_i,f - x_j,f)^2: exactly 0 for
+// self and for equal rows, where the Gram form can leave a rounding
+// residue, and within that form's rounding elsewhere (the port's d2 rule
+// for every kept edge).  No distance panel is written to device memory.  A row range [r0, r1) returns the lists of those query rows
 // only, (r1 - r0, k), against all n rows (a rank's share of a sharded
 // build); each row's list is the full call's bit for bit, because a row's
 // distances and its selection depend on nothing but its own row.
@@ -55,6 +58,9 @@
 //      No block barrier and no atomic serve the selection.  Ties keep the
 //      lower index because the keys compare (d2, index); self is pinned by
 //      d2 := -1.
+//   5. The epilogue writes each row's list, a lane a neighbor: its index,
+//      and its d2 from the two rows of x (row-major, in L2; 16-byte loads
+//      where d % 4 == 0), one fmaf chain in feature order.
 //
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py and k2_turns.py;
 // PERF.md): 28.6 ms at the eval's shape against 44.3 ms for the previous
@@ -278,14 +284,44 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* xt,
   }
 }
 
+// sum_f (x[i, f] - x[j, f])^2 as one fmaf chain in feature order, 16 bytes
+// a load where ``vec`` (d % 4 == 0 and x 16-byte aligned).
+__device__ __forceinline__ float diff_d2(const float* __restrict__ x, int i,
+                                         int j, int d, bool vec) {
+  const float* a = x + (size_t)i * d;
+  const float* b = x + (size_t)j * d;
+  float s = 0.f;
+  if (vec) {
+#pragma unroll 4
+    for (int f = 0; f < d; f += 4) {
+      const float4 u = __ldg(reinterpret_cast<const float4*>(a + f));
+      const float4 v = __ldg(reinterpret_cast<const float4*>(b + f));
+      const float t0 = u.x - v.x, t1 = u.y - v.y, t2 = u.z - v.z,
+                  t3 = u.w - v.w;
+      s = fmaf(t0, t0, s);
+      s = fmaf(t1, t1, s);
+      s = fmaf(t2, t2, s);
+      s = fmaf(t3, t3, s);
+    }
+  } else {
+#pragma unroll 4
+    for (int f = 0; f < d; ++f) {
+      const float t = __ldg(a + f) - __ldg(b + f);
+      s = fmaf(t, t, s);
+    }
+  }
+  return s;
+}
+
 // One block scans every column for kWarps * R rows from row_base +
 // blockIdx.x * kWarps * R, R rows a warp, and writes the rows of
 // [row_lo, row_hi) among them to row gi - row_lo of nbr and dist2.
 template <int R>
 __global__ void __launch_bounds__(kThreads, 1)
 knn_scan_kernel(const float* __restrict__ xt, const float* __restrict__ sq,
-                int n, int n_pad, int d_pad, int k, int row_base,
-                int row_lo, int row_hi, int64_t* __restrict__ nbr,
+                const float* __restrict__ x, int n, int n_pad, int d,
+                int d_pad, int vec_x, int k, int row_base, int row_lo,
+                int row_hi, int64_t* __restrict__ nbr,
                 float* __restrict__ dist2) {
   extern __shared__ __align__(16) float smem[];
   const int d_res = resident_features(d_pad);
@@ -529,11 +565,9 @@ knn_scan_kernel(const float* __restrict__ xt, const float* __restrict__ sq,
     for (int h = 0; h < 2; ++h) {
       const int e = lane + 32 * h;
       if (e >= k) continue;
-      const unsigned long long key = list[lr * kList + e];
-      const float v = key_d2(key);
-      const int vi = key_index(key);
+      const int vi = key_index(list[lr * kList + e]);
       nbr[out + e] = vi;
-      dist2[out + e] = fmaxf(v, 0.f);
+      dist2[out + e] = diff_d2(x, gi, vi, d, vec_x);
     }
   }
 }
@@ -557,17 +591,18 @@ Layout layout(int n, int d) {
 }
 
 template <int R>
-cudaError_t launch_scan_r(const float* xt, const float* sq, const Layout& l,
-                          int n, int k, int row_base, int row_lo, int row_hi,
-                          int blocks, int64_t* nbr, float* dist2,
-                          cudaStream_t s) {
+cudaError_t launch_scan_r(const float* xt, const float* sq, const float* x,
+                          const Layout& l, int n, int d, int vec_x, int k,
+                          int row_base, int row_lo, int row_hi, int blocks,
+                          int64_t* nbr, float* dist2, cudaStream_t s) {
   const size_t smem = scan_smem_bytes(l.d_pad);
   cudaError_t err = cudaFuncSetAttribute(
       knn_scan_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   knn_scan_kernel<R><<<blocks, kThreads, smem, s>>>(
-      xt, sq, n, l.n_pad, l.d_pad, k, row_base, row_lo, row_hi, nbr, dist2);
+      xt, sq, x, n, l.n_pad, d, l.d_pad, vec_x, k, row_base, row_lo, row_hi,
+      nbr, dist2);
   return cudaGetLastError();
 }
 
@@ -575,16 +610,17 @@ cudaError_t launch_scan_r(const float* xt, const float* sq, const Layout& l,
 // r = 1 .. R.
 template <int R>
 cudaError_t launch_scan(int r, const float* xt, const float* sq,
-                        const Layout& l, int n, int k, int row_base,
-                        int row_lo, int row_hi, int blocks, int64_t* nbr,
-                        float* dist2, cudaStream_t s) {
+                        const float* x, const Layout& l, int n, int d,
+                        int vec_x, int k, int row_base, int row_lo,
+                        int row_hi, int blocks, int64_t* nbr, float* dist2,
+                        cudaStream_t s) {
   if (r == R) {
-    return launch_scan_r<R>(xt, sq, l, n, k, row_base, row_lo, row_hi,
-                            blocks, nbr, dist2, s);
+    return launch_scan_r<R>(xt, sq, x, l, n, d, vec_x, k, row_base, row_lo,
+                            row_hi, blocks, nbr, dist2, s);
   }
   if constexpr (R > 1) {
-    return launch_scan<R - 1>(r, xt, sq, l, n, k, row_base, row_lo, row_hi,
-                              blocks, nbr, dist2, s);
+    return launch_scan<R - 1>(r, xt, sq, x, l, n, d, vec_x, k, row_base,
+                              row_lo, row_hi, blocks, nbr, dist2, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -643,9 +679,11 @@ extern "C" int gll_knn_topk_f32(const float* x, void* work, int64_t* nbr,
   const int span = (r1 - first + kBM - 1) / kBM * kBM;
   const int full = (span < l.n_pad - first ? span : l.n_pad - first) / kBM /
                    sms * sms;
+  const int vec_x =
+      d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   if (full > 0) {
-    err = launch_scan<8>(8, xt, sq, l, n, k, first, r0, r1, full, nbr, dist2,
-                         s);
+    err = launch_scan<8>(8, xt, sq, x, l, n, d, vec_x, k, first, r0, r1, full,
+                         nbr, dist2, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int rest = r1 - first - full * kBM;
@@ -653,8 +691,8 @@ extern "C" int gll_knn_topk_f32(const float* x, void* work, int64_t* nbr,
     const int per_block = (rest + sms - 1) / sms;
     const int r = (per_block + kWarps - 1) / kWarps;
     const int rows = kWarps * r;
-    err = launch_scan<8>(r, xt, sq, l, n, k, first + full * kBM, r0, r1,
-                         (rest + rows - 1) / rows, nbr, dist2, s);
+    err = launch_scan<8>(r, xt, sq, x, l, n, d, vec_x, k, first + full * kBM,
+                         r0, r1, (rest + rows - 1) / rows, nbr, dist2, s);
   }
   return static_cast<int>(err);
 }

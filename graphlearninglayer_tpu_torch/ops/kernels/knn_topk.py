@@ -1,12 +1,18 @@
 """Kernel K2: exact fused KNN (all-pairs distance + running top-k).
 
 ``fused_knn(x, k)`` returns ``(nbr, dist2)``, both (n, k): for every row of
-``x`` (n, d) its k nearest rows in ascending squared distance
+``x`` (n, d) its k nearest rows, ranked by
 
-    d2_ij = max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0),
+    d2_ij = max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0)
 
-self first (pinned by d2_ii := -1 during selection), ``nbr`` int64 and
-``dist2`` clamped at 0.  ``rows=(r0, r1)`` returns the lists of the query
+and (d2, index), self first (pinned by d2_ii := -1 during selection),
+``nbr`` int64.  The returned ``dist2`` of each kept edge is formed from the
+endpoints' difference, sum_f (x_i,f - x_j,f)^2 (:func:`kept_dist2`): the
+Gram form's cancellation leaves a residue where two rows are equal, and
+the difference gives exactly 0 there (self too), as JAX's float64 Gram
+sums do, so every route drops a coincident pair's edge.  The ranking is
+the Gram form's; only the returned values differ from it, by no more than
+its rounding.  ``rows=(r0, r1)`` returns the lists of the query
 rows ``x[r0:r1]`` only, (r1 - r0, k), against all n rows, with self at its
 global index: a rank's share of the sharded eval's build
 (``parallel/edge_shard.py::sharded_knn``); each row's list equals the full
@@ -31,7 +37,9 @@ register tiles, R rows a warp: whole waves of 128-row panels, then one
 wave of smaller blocks for the rows left over, so the last wave spreads
 over every SM.  After each tile a warp tests the rows it owns against
 their k-th kept distance and queues only the survivors, which it merges
-into the rows' sorted lists by (d2, index) 32 at a time.  On an H100 80GB
+into the rows' sorted lists by (d2, index) 32 at a time.  The epilogue
+forms each kept edge's d2 again from the rows of x (in L2), a lane a
+neighbor.  On an H100 80GB
 HBM3 at 700 W it takes 28.6 ms at the eval's shape, 24% of the bound and
 1.55x faster than the previous design in the same call (``chip_smoke.py``,
 ``k2_turns.py``; ``PERF.md``).  It still forms both triangles, twice the
@@ -50,10 +58,12 @@ import torch
 from ..precision import full_f32
 from . import _build
 
-__all__ = ["fused_knn", "fused_knn_plain", "smallest_k", "MAX_K"]
+__all__ = ["fused_knn", "fused_knn_plain", "kept_dist2", "smallest_k",
+           "MAX_K"]
 
 MAX_K = 64   # the running list's width (the Pallas kernel's default rt)
 SORT_COLS = 4096    # widest row smallest_k selects from by a stable sort
+DIST_CHUNK = 2048   # rows per chunk of kept_dist2 (a (chunk, k, d) gather)
 
 
 def _rows(x: torch.Tensor, rows) -> tuple[int, int]:
@@ -115,12 +125,27 @@ def select_by_topk(d2: torch.Tensor, k: int, tie: torch.Tensor
     return idx.gather(1, by_id.gather(1, by_value))
 
 
+def kept_dist2(xq: torch.Tensor, x: torch.Tensor,
+               nbr: torch.Tensor) -> torch.Tensor:
+    """sum_f (xq_i,f - x_j,f)^2 for each kept edge (i, j = nbr[i, s]),
+    (m, k), from the endpoints' difference, ``DIST_CHUNK`` query rows at a
+    time: exactly 0 where the rows are equal, and within the Gram form's
+    rounding of it elsewhere.  ``xq`` (m, d) holds the query rows, ``x``
+    (n, d) the rows that ``nbr`` (m, k) indexes."""
+    return torch.cat([
+        (xq[s:s + DIST_CHUNK, None, :] - x[nbr[s:s + DIST_CHUNK]])
+        .square().sum(dim=-1)
+        for s in range(0, xq.shape[0], DIST_CHUNK)])
+
+
 def fused_knn_plain(x: torch.Tensor, k: int, block: int = 1024, rows=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2 in plain PyTorch (the JAX package's ``knn_tiled`` route): per
     ``block`` query rows, one distance panel against all of ``x`` and one
-    selection by (d2, index), :func:`smallest_k`.  Peak panel memory is
-    ``block`` x n.  ``rows=(r0, r1)``: the query rows ``x[r0:r1]`` only.
+    selection by (d2, index), :func:`smallest_k`; the kept edges' d2 then
+    from the endpoints' difference (:func:`kept_dist2`).  Peak panel
+    memory is ``block`` x n.  ``rows=(r0, r1)``: the query rows
+    ``x[r0:r1]`` only.
     The CPU path, and the yardstick the kernel is held against on the
     card."""
     r0, r1 = _rows(x, rows)
@@ -134,9 +159,9 @@ def fused_knn_plain(x: torch.Tensor, k: int, block: int = 1024, rows=None
             d2 = (qq[:, None] + xx_all[None, :]
                   - 2.0 * (xb @ x.T)).clamp_min(0.0)
             d2[local, local + start] = -1.0
-            dist, idx = smallest_k(d2, k)
+            idx = smallest_k(d2, k)[1]
             nbrs.append(idx)
-            dists.append(dist.clamp_min(0.0))
+            dists.append(kept_dist2(xb, x, idx))
     return torch.cat(nbrs), torch.cat(dists)
 
 

@@ -10,7 +10,10 @@ deterministic, which the parity tests rely on.
 
 Conventions (matching the reference):
   * Euclidean metric; ``dist2`` is the *squared* distance (the affinity only
-    ever consumes d^2).
+    ever consumes d^2).  Every route ranks by |x_i|^2 + |x_j|^2 - 2 x_i.x_j
+    and returns each kept edge's d^2 from the endpoints' difference
+    (``kernels.knn_topk.kept_dist2``), so that equal rows are at exactly 0
+    and their edge is dropped downstream, as in JAX's float64 Gram sums.
   * Self is always the first neighbor with distance 0.
   * Equal distances go to the lower index (``kernels.knn_topk.smallest_k``),
     as in K2 and the JAX package's ``lax.top_k`` routes, so coincident
@@ -20,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from .kernels.knn_topk import MAX_K, fused_knn, fused_knn_plain, smallest_k
+from .kernels.knn_topk import (MAX_K, fused_knn, fused_knn_plain, kept_dist2,
+                               smallest_k)
 
 __all__ = ["pairwise_dist2", "knn", "knn_tiled"]
 
@@ -43,11 +47,12 @@ def knn(x: torch.Tensor, k: int,
 
     Returns ``(nbr, dist2)`` with shapes (n, k): ``nbr[i, 0] == i`` and the
     remaining columns are the k-1 nearest other points in ascending
-    (distance, index) order.  ``nbr`` is int64, PyTorch's index type.  ``dist2`` holds squared
-    distances (``dist2[:, 0] == 0``).
+    (distance, index) order of the Gram form ``d2``.  ``nbr`` is int64,
+    PyTorch's index type.  ``dist2`` holds the kept edges' squared
+    distances from the endpoints' difference (``dist2[:, 0] == 0``).
 
     ``d2``: optionally pass a precomputed (n, n) squared-distance matrix (the
-    dense op path reuses one).
+    dense op path reuses one); it ranks, and is not returned.
     """
     n = x.shape[0]
     if d2 is None:
@@ -55,8 +60,8 @@ def knn(x: torch.Tensor, k: int,
     # pin self strictly first regardless of float noise or coincident points
     eye = torch.eye(n, dtype=torch.bool, device=x.device)
     d2 = d2.masked_fill(eye, -1.0)
-    dist, idx = smallest_k(d2, k)
-    return idx, dist.clamp_min(0.0)
+    idx = smallest_k(d2, k)[1]
+    return idx, kept_dist2(x, x, idx)
 
 
 def knn_tiled(x: torch.Tensor, k: int,

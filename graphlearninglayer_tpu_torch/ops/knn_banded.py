@@ -22,10 +22,12 @@ can run over a narrow band of them instead of all n columns:
 Every returned list is therefore exactly ``knn_tiled``'s: both passes
 select by (d2, original node id) (``kernels.knn_topk.smallest_k``), the
 rule of K2 and of ``knn_tiled``'s plain route, so a tie at the k-th slot
-goes the same way whatever the permutation.  A poor permutation only
-raises the fallback fraction.  The JAX package runs this outside Pallas,
-and so does the port: matrix products and a top-k selection on either
-device, no kernel.
+goes the same way whatever the permutation, and the kept edges' d2 are
+formed again from the endpoints' difference
+(``kernels.knn_topk.kept_dist2``), as every KNN route returns them.  A
+poor permutation only raises the fallback fraction.  The JAX package runs
+this outside Pallas, and so does the port: matrix products and a top-k
+selection on either device, no kernel.
 
 Two differences from the JAX twin, neither of which changes a list:
 
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from .graph import pad_far_rows
-from .kernels.knn_topk import smallest_k
+from .kernels.knn_topk import kept_dist2, smallest_k
 from .precision import full_f32
 
 __all__ = ["banded_knn"]
@@ -64,9 +66,9 @@ def _banded_scan(x_p: torch.Tensor, n_real: int, k: int,
     """The banded pass over the permuted rows ``x_p`` (the rows from
     ``n_real`` on are padding).
 
-    Returns (nbr_p, dist2, certified): neighbor ids in permuted space,
-    ascending squared distances (self pinned first, ties to the lower
-    original id ``self_id``) and the per-row certificate."""
+    Returns (nbr_p, certified): neighbor ids in permuted space, ranked by
+    squared distance (self pinned first, ties to the lower original id
+    ``self_id``), and the per-row certificate."""
     n, d = x_p.shape
     nb = n // block
     xb = x_p.reshape(nb, block, d)
@@ -93,7 +95,7 @@ def _banded_scan(x_p: torch.Tensor, n_real: int, k: int,
 
         col_base = torch.arange(block, device=x_p.device)
         blocks = torch.arange(nb, device=x_p.device)
-        nbrs, dists, certs = [], [], []
+        nbrs, certs = [], []
         for q in range(nb):
             rows = q * block + col_base
             bids = band_ids[q]
@@ -110,8 +112,7 @@ def _banded_scan(x_p: torch.Tensor, n_real: int, k: int,
             t = dist2[:, k - 1]
             certs.append(m > t + 1e-3 * (1.0 + t))
             nbrs.append(cols[idx])
-            dists.append(dist2.clamp_min(0.0))
-    return torch.cat(nbrs), torch.cat(dists), torch.cat(certs)
+    return torch.cat(nbrs), torch.cat(certs)
 
 
 def _fallback_rows(x_p: torch.Tensor, rows: torch.Tensor, k: int,
@@ -121,7 +122,7 @@ def _fallback_rows(x_p: torch.Tensor, rows: torch.Tensor, k: int,
     n = x_p.shape[0]
     xx = torch.sum(x_p * x_p, dim=-1)
     cols = torch.arange(n, device=x_p.device)
-    nbrs, dists = [], []
+    nbrs = []
     with full_f32():
         for s in range(0, len(rows), _FALLBACK_PANEL):
             r = rows[s:s + _FALLBACK_PANEL]
@@ -129,10 +130,8 @@ def _fallback_rows(x_p: torch.Tensor, rows: torch.Tensor, k: int,
             d2 = (xx[r][:, None] + xx[None, :]
                   - 2.0 * (xq @ x_p.T)).clamp_min(0.0)
             d2 = d2.masked_fill(r[:, None] == cols[None, :], -1.0)
-            dist2, idx = smallest_k(d2, k, self_id)
-            nbrs.append(idx)
-            dists.append(dist2.clamp_min(0.0))
-    return torch.cat(nbrs), torch.cat(dists)
+            nbrs.append(smallest_k(d2, k, self_id)[1])
+    return torch.cat(nbrs)
 
 
 def banded_knn(x, k: int, perm, block: int = 512, band: int = 16,
@@ -151,7 +150,7 @@ def banded_knn(x, k: int, perm, block: int = 512, band: int = 16,
     frac)`` comes back: the caller should run ``knn_tiled`` and refresh its
     permutation.
     """
-    x = torch.as_tensor(x)
+    x = x_real = torch.as_tensor(x)
     n = x.shape[0]
     nbk = max(1, min(band, (n + block - 1) // block))
     pad = (-n) % block
@@ -163,20 +162,19 @@ def banded_knn(x, k: int, perm, block: int = 512, band: int = 16,
     perm_t = torch.as_tensor(perm_p, device=x.device)
     x_p = x[perm_t]
     # the original id of each permuted position: the self channel
-    nbr_p, dist2, cert = _banded_scan(x_p, n, k, perm_t, block, nbk)
+    nbr_p, cert = _banded_scan(x_p, n, k, perm_t, block, nbk)
     cert[n:] = True                          # pad rows: don't care
     bad = torch.nonzero(~cert).squeeze(1)
     frac = len(bad) / n
     if frac > max_fallback_frac:
         return None, None, frac
     if len(bad):
-        fb_nbr, fb_d2 = _fallback_rows(x_p, bad, k, perm_t)
-        nbr_p[bad] = fb_nbr
-        dist2[bad] = fb_d2
+        nbr_p[bad] = _fallback_rows(x_p, bad, k, perm_t)
 
     # back to the original order: rows reordered by inv(perm), neighbor
     # ids mapped through perm
     inv = np.empty(len(perm_p), np.int64)
     inv[perm_p] = np.arange(len(perm_p))
     rows = torch.as_tensor(inv[:n], device=x.device)
-    return perm_t[nbr_p][rows], dist2[rows], frac
+    nbr = perm_t[nbr_p][rows]
+    return nbr, kept_dist2(x_real, x_real, nbr), frac

@@ -62,6 +62,7 @@ def sharded_laplace_solve(mesh: Mesh, g: BatchGraph, y: torch.Tensor,
     ell = build_sym_ell(g, w, ell_cap(int(max_in_degree(g))))
     nbr_loc = ell.nbr[lo:lo + chunk].contiguous()
     val_loc = ell.val[lo:lo + chunk].contiguous()
+    cnt_loc = ell.cnt[lo:lo + chunk].contiguous()
     dev, dt = val_loc.device, val_loc.dtype
     y_loc = torch.zeros((chunk, l), dtype=dt, device=dev)
     if lo < k_lab:
@@ -75,7 +76,7 @@ def sharded_laplace_solve(mesh: Mesh, g: BatchGraph, y: torch.Tensor,
     def spmm(x_loc):
         """This rank's rows of W @ x, from the all-gathered iterate."""
         return ell_gather_spmm(nbr_loc, val_loc,
-                               mesh.all_gather(x_loc).contiguous())
+                               mesh.all_gather(x_loc).contiguous(), cnt_loc)
 
     # rhs = M (W_ul Y): y is zero on unlabeled rows, M zero on labeled ones
     b = mscale[:, None] * spmm(y_loc)

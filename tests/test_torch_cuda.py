@@ -79,10 +79,10 @@ def test_kernel_matches_plain_on_card(cuda_device, n, d):
 @pytest.mark.cuda
 def test_k1_drops_duplicated_rows_exactly(cuda_device):
     """Rows copied onto other rows (d2 = 0) are each other's nearest
-    neighbors, and K1 gives exactly 0 there: the norms and the Gram tile
-    are one fmaf chain in feature order.  Elsewhere it matches the plain
-    version within 1e-6 (whose norms and products round apart, so its d2
-    there is not always 0)."""
+    neighbors, and K1 gives exactly 0 there, as its plain version does:
+    both form a kept entry's d2 from the rows' difference, which is 0 for
+    equal rows in any summation order.  Elsewhere they agree within
+    1e-6."""
     n, d = 300, 128
     x = _affinity_features(n, d, seed=11)
     src, dup = torch.arange(10, 30), torch.arange(150, 170)
@@ -93,11 +93,35 @@ def test_k1_drops_duplicated_rows_exactly(cuda_device):
     got = k1.fused_affinity_sym(*args)
     want = k1.fused_affinity_sym_plain(*args)
     torch.cuda.synchronize()
-    assert not bool(got[dup, src].any()) and not bool(got[src, dup].any())
-    assert not bool(got.diagonal().any())
-    keep = torch.ones((n, n), dtype=torch.bool, device=cuda_device)
-    keep[dup, src] = keep[src, dup] = False
-    assert (got - want)[keep].abs().max().item() <= 1e-6
+    for w in (got, want):
+        assert not bool(w[dup, src].any()) and not bool(w[src, dup].any())
+        assert not bool(w.diagonal().any())
+    assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_k2_gives_duplicated_rows_d2_zero(cuda_device):
+    """K2 returns each kept edge's d2 from the rows' difference: exactly 0
+    for a row's copy and for self, as its plain version does, and within
+    1e-6 of the plain version elsewhere (both the difference form), on
+    the same lists."""
+    n, d, k = 1500, 128, 25
+    x = _knn_features(n, d, seed=12)
+    src, dup = torch.arange(10, 40), torch.arange(700, 730)
+    x[dup] = x[src]
+    x = x.to(cuda_device)
+    nbr, dist2 = k2.fused_knn(x, k)
+    pn, pd = k2.fused_knn_plain(x, k, 512)
+    torch.cuda.synchronize()
+    for got_n, got_d in ((nbr, dist2), (pn, pd)):
+        # the copy is the nearest other row: the second slot, at 0
+        assert torch.equal(got_n[src, 1], dup.to(cuda_device))
+        assert torch.equal(got_n[dup, 1], src.to(cuda_device))
+        assert not bool(got_d[src, :2].any()) and not bool(got_d[dup, :2].any())
+        assert not bool(got_d[:, 0].any())
+    same = (nbr == pn).all(1)
+    assert same.float().mean().item() >= 0.99
+    assert (dist2[same] - pd[same]).abs().max().item() <= 1e-6
 
 
 @pytest.mark.cuda
@@ -845,6 +869,80 @@ def test_ell_gather_spmm_matches_plain_on_card(cuda_device, n, l, padding):
     assert (got - want).abs().max().item() <= bar
 
 
+def _ell_counted(m, n, s, seed):
+    """A random ELL structure with per-row counts, on the card: each row's
+    slots below its count in use (a fifth of them masked at 0, as a
+    masked out-edge is), the slots past it padding, as ``build_sym_ell``
+    packs them."""
+    gen = torch.Generator().manual_seed(seed)
+    nbr = torch.randint(0, n, (m, s), generator=gen)
+    val = torch.rand((m, s), generator=gen)
+    val = val.masked_fill(torch.rand((m, s), generator=gen) < 0.2, 0.0)
+    counts = torch.randint(0, s + 1, (m,), generator=gen, dtype=torch.int32)
+    pad = torch.arange(s)[None, :] >= counts[:, None]
+    nbr, val = nbr.masked_fill(pad, 0), val.masked_fill(pad, 0.0)
+    return nbr.cuda(), val.cuda(), counts.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 4, 10, 12, 13, 100, 129])
+def test_ell_gather_spmm_counts_match_plain_on_card(cuda_device, l):
+    """P3 with per-row counts against its plain version with and without
+    them, within 1e-6 max_i sum_s |val[i, s]| max |x| an entry, on a
+    half of x's rows indexing all of it.  l = 1 and 13 take scalar lanes,
+    10 float2, 4, 12 and 100 float4, 129 two passes over the slots; an x
+    that starts 4 bytes past a 16-byte boundary takes scalar lanes."""
+    n = 20000
+    m = n // 2
+    nbr, val, counts = _ell_counted(m, n, 96, seed=l)
+    x = torch.randn((n, l), generator=torch.Generator().manual_seed(l)
+                    ).cuda()
+    before = p3.ell_gather_spmm.launches
+    got = p3.ell_gather_spmm(nbr, val, x, counts)
+    torch.cuda.synchronize()
+    assert p3.ell_gather_spmm.launches == before + 1
+    bar = 1e-6 * val.abs().sum(1).max().item() * x.abs().max().item()
+    for want in (p3.ell_gather_spmm_plain(nbr, val, x, counts),
+                 p3.ell_gather_spmm_plain(nbr, val, x)):
+        assert (got - want).abs().max().item() <= bar
+    # an unaligned x: a (n, l) window one float into a buffer
+    flat = torch.randn(n * l + 1, generator=torch.Generator().manual_seed(1)
+                       ).cuda()
+    xu = flat[1:].view(n, l)
+    got = p3.ell_gather_spmm(nbr, val, xu, counts)
+    want = p3.ell_gather_spmm_plain(nbr, val, xu, counts)
+    bar = 1e-6 * val.abs().sum(1).max().item() * xu.abs().max().item()
+    assert (got - want).abs().max().item() <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [10, 100])
+def test_ell_gather_spmm_never_reads_padding_on_card(cuda_device, l):
+    """A non-finite row of x that only slots past the counts (holding a
+    value there, which a padding slot never does) and masked slots (value
+    0) point at does not reach out: the kernel reads no slot past a row's
+    count and gathers no row for a zero value."""
+    n = 5000
+    nbr, val, counts = _ell_counted(n, n, 64, seed=7)
+    bad = 123
+    nbr = torch.where(nbr == bad, (nbr + 1) % n, nbr)
+    slot = torch.arange(64, device=cuda_device)[None, :]
+    past = slot >= counts[:, None].long()
+    nbr = torch.where(past | (val == 0), bad, nbr)
+    val_junk = torch.where(past, 1.0, val)
+    x = torch.randn((n, l), device=cuda_device)
+    clean = x.clone()
+    x[bad] = float("nan")
+    x[bad, 0] = float("inf")
+    got = p3.ell_gather_spmm(nbr, val_junk, x, counts)
+    clean[bad] = 0.0
+    want = p3.ell_gather_spmm_plain(nbr, val, clean, counts)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    bar = 1e-6 * val.abs().sum(1).max().item() * clean.abs().max().item()
+    assert (got - want).abs().max().item() <= bar
+
+
 @pytest.mark.cuda
 def test_ell_gather_spmm_raises_on_what_it_does_not_take(cuda_device):
     nbr, val = _ell(50, 80, 8, False, seed=0)
@@ -859,6 +957,9 @@ def test_ell_gather_spmm_raises_on_what_it_does_not_take(cuda_device):
         p3.ell_gather_spmm(nbr, val, x.T.contiguous().T)
     with pytest.raises(ValueError, match="contiguous"):
         p3.ell_gather_spmm(nbr.T.contiguous().T, val, x)
+    with pytest.raises(TypeError, match="int32"):
+        p3.ell_gather_spmm(nbr, val, x, torch.ones(50, dtype=torch.int64,
+                                                   device="cuda"))
 
 
 @pytest.mark.cuda

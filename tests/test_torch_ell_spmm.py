@@ -13,6 +13,12 @@ JAX package in float64 on the CPU.
   iterations + 2 times (the right-hand side, the start residual and one
   a CG step), the count ``chip_smoke.py`` holds the card's launches to.
 
+* ``SymEll.cnt``, each row's slots in use, on ``build_sym_ell``'s output
+  with masked edges (coincident rows) and with an overflow list: k plus
+  the row's in-slots, the last slot that holds a value plus one wherever
+  the row has an in-edge, and nothing but padding past it; the plain
+  version's sum over each row's count equals its sum over every slot.
+
 On CPU tensors the wrapper runs the plain version and its launch count
 does not move.  The row-sharded solve over two ranks is held to the
 single-device ELL solve in ``tests/test_torch_parallel.py``.
@@ -123,3 +129,45 @@ def test_ell_gather_spmm_checks_its_inputs():
         p3.ell_gather_spmm(nbr, val, x[0])
     with pytest.raises(ValueError, match="CUDA or CPU"):
         p3.ell_gather_spmm(nbr.to("meta"), val.to("meta"), x.to("meta"))
+    with pytest.raises(ValueError, match="counts must be"):
+        p3.ell_gather_spmm(nbr, val, x, torch.ones(3, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("l", [3, 10])
+@pytest.mark.parametrize("overflow", [False, True])
+def test_sym_ell_counts_end_each_rows_slots(overflow, l):
+    rng = np.random.default_rng(20 + l)
+    x = rng.normal(size=(N_GRAPH, D))
+    x[150:160] = x[10:20]           # coincident pairs: masked edges
+    g = tg.build_graph(torch.tensor(x), KNN)
+    assert bool((g.coef[:, 1:] == 0).any())
+    w, _ = tg.edge_weights(g)
+    max_deg = int(tg.max_in_degree(g))
+    cap = max(1, max_deg // 2) if overflow else tg.ell_cap(max_deg)
+    ovf_cap = int(tg.overflow_count(g, cap))
+    assert (ovf_cap > 0) == overflow
+    ell = tg.build_sym_ell(g, w, cap, ovf_cap)
+    cnt = ell.cnt
+    assert cnt.dtype == torch.int32 and cnt.shape == (N_GRAPH,)
+    indeg = torch.bincount(g.nbr[g.coef > 0], minlength=N_GRAPH)
+    assert torch.equal(cnt.long(), KNN + indeg.clamp_max(cap))
+    slot = torch.arange(ell.nbr.shape[1])
+    past = slot[None, :] >= cnt[:, None]
+    assert not bool(ell.val[past].any()) and not bool(ell.nbr[past].any())
+    last = torch.where(ell.val != 0, slot, -1).amax(1) + 1
+    has_in = indeg > 0
+    assert torch.equal(cnt[has_in].long(), last[has_in])
+    assert bool((cnt[~has_in] == KNN).all())
+    # a reweighted structure keeps the counts
+    assert tg.ell_reweight(g, ell, w * 2.0).cnt is ell.cnt
+    v = torch.tensor(rng.normal(size=(N_GRAPH, l)))
+    np.testing.assert_allclose(
+        p3.ell_gather_spmm_plain(ell.nbr, ell.val, v, cnt).numpy(),
+        p3.ell_gather_spmm_plain(ell.nbr, ell.val, v).numpy(),
+        atol=1e-12, rtol=0)
+    before = p3.ell_gather_spmm.launches
+    np.testing.assert_allclose(
+        p3.ell_gather_spmm(ell.nbr, ell.val, v, cnt).numpy(),
+        p3.ell_gather_spmm_plain(ell.nbr, ell.val, v).numpy(),
+        atol=1e-12, rtol=0)
+    assert p3.ell_gather_spmm.launches == before

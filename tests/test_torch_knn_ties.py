@@ -15,9 +15,12 @@ is exact in both frameworks.  On both:
 * ``banded_knn``, with a band that scans every block and with one that
   sends most rows to its exact fallback, gives JAX ``knn_tiled``'s lists;
 * ``build_graph(..., tiled=True)`` gives JAX's graph within 1e-12 on the
-  grid, and on the normal draws at seeds 0, 2 and 3; at seeds 1, 4 and 5
-  it does not (``_D2_RESIDUE``: a strict expected failure, the d2
-  cancellation that ROADMAP.md keeps queued).
+  grid and on the normal draws at every seed.  On the normal draws a
+  coincident pair's float64 d2 is 0 in JAX's Gram sums, and the port
+  forms every kept edge's d2 from the endpoints' difference, which is 0
+  there too, so both drop the pair's edge (the Gram form in torch's
+  summation order left a residue of up to 1.4e-14 at seeds 1, 4 and 5,
+  and kept it).
 
 JAX's default dense ``knn`` selects with ``lax.approx_min_k``, whose order
 among equal distances is its own: the op's parity against that default
@@ -114,27 +117,14 @@ def test_exact_knn_breaks_ties_by_index(route, kind, seed):
                                rtol=0)
 
 
-# On the normal draws a coincident pair's float64 d2 is the cancellation
-# residue of |x|^2 + |y|^2 - 2 x.y: 0 in JAX, up to 3.6e-15 in the port at
-# seeds 1, 4 and 5, so JAX drops the pair's edge and the port keeps it.
-# That d2 form, shared by the plain routes, K1 and K2, is queued in
-# ROADMAP.md (section 2, the d2 cancellation; section 3, open faults).
-_D2_RESIDUE = pytest.mark.xfail(
-    strict=True, raises=AssertionError,
-    reason="a coincident pair's d2 is 0 in JAX and a float64 residue in "
-           "the port, which keeps the pair's edge (ROADMAP.md, d2 "
-           "cancellation)")
-
 
 @pytest.mark.parametrize("kind,seed", [
     pytest.param("grid", s, id=str(s)) for s in SEEDS] + [
-    pytest.param("normal", s, id=f"normal-{s}",
-                 marks=_D2_RESIDUE if s in (1, 4, 5) else ())
-    for s in SEEDS])
+    pytest.param("normal", s, id=f"normal-{s}") for s in SEEDS])
 def test_tiled_graph_on_coincident_rows_matches_jax(kind, seed):
     """The graph of the tiled lists, JAX's and the port's, within 1e-12.
-    On the grid a coincident pair's d2 is 0 in both frameworks; on the
-    normal draws see ``_D2_RESIDUE``."""
+    A coincident pair's d2 is 0 in both frameworks, on the grid and on
+    the normal draws, and its edge is dropped."""
     x = _coincident(seed, kind)
     nbr, dist2, coef, eps = _jgraph(jnp.asarray(x))
     g = tgraph.build_graph(torch.tensor(x), K, "auto", tiled=True, block=32)
