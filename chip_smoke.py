@@ -1359,20 +1359,11 @@ def phase_ell() -> dict:
                 used_slots=used, counted_slots=counted)
 
 
-def phase_probes() -> dict:
-    """P1 and P2, the counterparts of the TPU probes, which no path calls.
-    The probe run: P1's sort ascending and descending (the probe's sort and
-    full lax.top_k) at each of P1_SHAPES and its gated scale on a block
-    with a positive max and on one without, P2 at each of P2_CASES, each
-    once, with the counts set to 0 before and read after.  Then each
-    output equal to its plain version's on the same input, and device ms
-    (100 back-to-back launches) beside the plain version's, one library
-    call's (torch.topk over the whole row, whose order among equal values
-    is open; torch.take_along_dim) and the bound."""
+def probe_inputs():
+    """The probes phase's inputs on the card, from SEED: P1's blocks at
+    P1_SHAPES, the gated scale's block with a positive max and without
+    one, and P2's (x, idx) at each of P2_CASES."""
     import torch
-
-    from graphlearninglayer_tpu_torch.ops.kernels import row_sort as p1
-    from graphlearninglayer_tpu_torch.ops.kernels import take_along as p2
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     blocks = {(q, m): torch.randn((q, m), generator=gen, device="cuda")
@@ -1385,6 +1376,54 @@ def phase_probes() -> dict:
             torch.randn((m, n), generator=gen, device="cuda"),
             torch.randint(0, m if axis == 0 else n, (m, n), generator=gen,
                           device="cuda"))
+    return blocks, signs, gathers
+
+
+def launch_floor_ms() -> float:
+    """Device ms of a kernel that returns at once (the spin kernel with
+    zero cycles) by device_ms: the part of a short kernel's time that no
+    design of it can take away."""
+    import torch
+
+    return device_ms(lambda: torch.cuda._sleep(0))
+
+
+def p2_sector_bytes(idx, n: int) -> int:
+    """Bytes of the 32-byte L2 sectors that P2's axis-0 gathers of x
+    (m, n) float32 fetch, counting a sector once for each row of out that
+    reads it (a row's gathers are one warp's requests; the sector's other
+    uses by other rows count again)."""
+    import torch
+
+    col = torch.arange(n, device=idx.device)
+    sectors = torch.sort((idx * n + col) // 8, dim=1).values
+    distinct = sectors.shape[0] + (sectors.diff(dim=1) != 0).sum().item()
+    return 32 * int(distinct)
+
+
+def p1_p2_bound_ms(nbytes: int) -> float:
+    """P1's and P2's bound: bytes over the card's rate (they do no
+    arithmetic worth counting)."""
+    return 1e3 * nbytes / PEAK_BYTES_PER_S
+
+
+def phase_probes() -> dict:
+    """P1 and P2, the counterparts of the TPU probes, which no path calls.
+    The probe run: P1's sort ascending and descending (the probe's sort and
+    full lax.top_k) at each of P1_SHAPES and its gated scale on a block
+    with a positive max and on one without, P2 at each of P2_CASES, each
+    once, with the counts set to 0 before and read after.  Then each
+    output equal to its plain version's on the same input, and device ms
+    (100 back-to-back launches) beside the plain version's, one library
+    call's (torch.topk over the whole row, whose order among equal values
+    is open; torch.take_along_dim; none computes the gated scale in one
+    call), the bound and the launch floor; P2's L2 sectors at axis 0."""
+    import torch
+
+    from graphlearninglayer_tpu_torch.ops.kernels import row_sort as p1
+    from graphlearninglayer_tpu_torch.ops.kernels import take_along as p2
+
+    blocks, signs, gathers = probe_inputs()
     p1.row_sort.launches = p1.scale_if_max_positive.launches = 0
     p2.take_along.launches = 0
     sorted_out = {(shape, desc): p1.row_sort(x, desc)
@@ -1400,9 +1439,7 @@ def phase_probes() -> dict:
                            scale_if_max_positive=len(signs),
                            take_along=len(P2_CASES)),
           f"each probe case launched its kernel once ({launches})")
-
-    def bound(nbytes):
-        return 1e3 * nbytes / PEAK_BYTES_PER_S
+    floor_ms = launch_floor_ms()
 
     sorts = {}
     for (shape, desc), (vals, idx) in sorted_out.items():
@@ -1418,7 +1455,8 @@ def phase_probes() -> dict:
             plain_ms=device_ms(lambda: p1.row_sort_plain(x, desc)),
             library_ms=device_ms(lambda: torch.topk(x, m, dim=1,
                                                     largest=not desc)),
-            bound_ms=bound(16 * q * m), bound_by="bytes")
+            bound_ms=p1_p2_bound_ms(16 * q * m), bound_by="bytes",
+            launch_floor_ms=floor_ms)
     gated = {}
     for name, out in scaled.items():
         x = signs[name]
@@ -1427,18 +1465,26 @@ def phase_probes() -> dict:
         gated[name] = dict(
             ms=device_ms(lambda: p1.scale_if_max_positive(x)),
             plain_ms=device_ms(lambda: p1.scale_if_max_positive_plain(x)),
-            bound_ms=bound(8 * x.numel()), bound_by="bytes")
+            library_ms=None,
+            bound_ms=p1_p2_bound_ms(8 * x.numel()), bound_by="bytes",
+            launch_floor_ms=floor_ms)
     takes = {}
     for case, out in taken.items():
         (x, idx), (m, n, axis) = gathers[case], case
         want = p2.take_along_plain(x, idx, axis)
         check(torch.equal(out, want), f"P2 equals torch.gather at {case}")
+        ms = device_ms(lambda: p2.take_along(x, idx, axis))
         takes[f"{m}x{n}_axis{axis}"] = dict(
-            max_abs_err=(out - want).abs().max().item(),
-            ms=device_ms(lambda: p2.take_along(x, idx, axis)),
+            max_abs_err=(out - want).abs().max().item(), ms=ms,
             plain_ms=device_ms(lambda: p2.take_along_plain(x, idx, axis)),
             library_ms=device_ms(lambda: torch.take_along_dim(x, idx, axis)),
-            bound_ms=bound(16 * m * n), bound_by="bytes")
+            bound_ms=p1_p2_bound_ms(16 * m * n), bound_by="bytes",
+            launch_floor_ms=floor_ms)
+        if axis == 0:
+            sector_bytes = p2_sector_bytes(idx, n)
+            takes[f"{m}x{n}_axis{axis}"].update(
+                l2_sector_bytes=sector_bytes,
+                l2_sector_bytes_per_ms=sector_bytes / ms)
     emit("probes", launches=launches, row_sort=sorts,
          scale_if_max_positive=gated, take_along=takes,
          library="torch.topk over the whole row (P1); "
@@ -1448,9 +1494,7 @@ def phase_probes() -> dict:
                     row_sort=max(v["max_abs_err"] for v in sorts.values()),
                     take_along=max(v["max_abs_err"]
                                    for v in takes.values())),
-                row_sort=sorts["256x512"],
-                row_sort_desc=sorts["256x512_desc"],
-                scale=gated["positive"], take_along=takes["65536x128_axis0"])
+                row_sort=sorts, scale=gated, take_along=takes)
 
 
 def phase_transductive_eval(state):
@@ -3522,15 +3566,14 @@ def main() -> int:
         "source": "graphlearninglayer_tpu_torch/ops/kernels/csrc/"
                   "row_sort.cu",
         "replaces": "benchmarks/probe_pallas_sort.py:25",
-        # on no path: the probes phase's run of the probe's cases
+        # on no path: the probes phase's run of the probe's cases; the
+        # numbers at 256 x 512 ascending, every case's beside them
         "launches": probes["launches"]["row_sort"],
         "max_abs_err": probes["max_abs_err"]["row_sort"],
-        "ms": probes["row_sort"]["ms"],
-        "plain_ms": probes["row_sort"]["plain_ms"],
-        "bound_ms": probes["row_sort"]["bound_ms"],
-        "bound_by": probes["row_sort"]["bound_by"],
-        "library_ms": probes["row_sort"]["library_ms"],
-        "descending": probes["row_sort_desc"],
+        **{key: probes["row_sort"]["256x512"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launch_floor_ms")},
+        "cases": probes["row_sort"],
         "scale_if_max_positive": dict(
             probes["scale"],
             launches=probes["launches"]["scale_if_max_positive"]),
@@ -3542,11 +3585,10 @@ def main() -> int:
         "replaces": "benchmarks/probe_gather_support.py:19",
         "launches": probes["launches"]["take_along"],
         "max_abs_err": probes["max_abs_err"]["take_along"],
-        "ms": probes["take_along"]["ms"],
-        "plain_ms": probes["take_along"]["plain_ms"],
-        "bound_ms": probes["take_along"]["bound_ms"],
-        "bound_by": probes["take_along"]["bound_by"],
-        "library_ms": probes["take_along"]["library_ms"],
+        **{key: probes["take_along"]["65536x128_axis0"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launch_floor_ms", "l2_sector_bytes")},
+        "cases": probes["take_along"],
     }]
     emit("done", wall_s=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))

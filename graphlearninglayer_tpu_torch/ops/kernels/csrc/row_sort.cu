@@ -1,5 +1,5 @@
-// Kernel P1: an in-block bitonic sort of each row, and a block gated on a
-// reduced scalar.
+// Kernel P1: a bitonic sort of each row in registers, and a scale gated on
+// a reduced scalar.
 //
 // gll_row_sort_f32: x (Q, M) float32 row-major, M a power of two up to
 // 1,024.  Each row is sorted by the key (value, column index), ascending,
@@ -7,10 +7,13 @@
 // the lower index comes first either way; NaN counts as larger than every
 // number (last ascending, first descending), -0.0 as equal to +0.0: the
 // order of torch.sort(..., stable=True).  Writes the sorted values (Q, M)
-// float32 and their column indices (Q, M) int64.
+// float32 and their column indices (Q, M) int64.  (A NaN whose sign bit is
+// set is last here, as on the CPU; torch.sort on the card orders NaNs by
+// their bits, which puts it first.)
 //
 // gll_scale_if_max_positive_f32: out = 2 x where max(x) > 0 over the whole
-// array, else x (a NaN anywhere makes the max NaN, and then out = x).
+// array, else x, bit for bit (a NaN anywhere makes the max NaN, and then
+// out = x).
 //
 // It replaces the Pallas TPU probe benchmarks/probe_pallas_sort.py:25
 // (run), which asked whether Mosaic compiles a lane-dimension sort,
@@ -24,76 +27,369 @@
 // exchanges a row are far below the card's rate, so it is bound by bytes:
 // 0.63 us at 256 x 512.  The gated scale reads x once and writes it once.
 //
-// Design.  One block a row: the row's values and indices sit in shared
-// memory (8 KB at M = 1,024), each thread takes M / 2 / blockDim pairs of
-// every stage of the network, and a block barrier separates the stages.
-// The network is the probe's (partner = i XOR j, direction from bit k),
-// with keys that are unique (the index breaks ties), so its output is the
-// one total order whatever the network.  The gated scale is two kernels:
-// the first ORs "some element > 0" and "some element is NaN" into a flag
-// word, warp by warp, the second scales where the flag says so.
+// Design of the sort.  Each element becomes one unsigned 64-bit key whose
+// integer order is the sort's order: the high word maps the value to an
+// order-preserving uint32 (-0.0 taken as +0.0, every NaN as one value above
+// +inf; complemented for descending), the low word is the column.  Keys
+// are unique, so any sorting network gives the one total order.  A row
+// lies in the registers of T threads, R = M / T consecutive keys a thread
+// (T = 32 up to M = 128, then R = 4: T = 64 at 256, 128 at 512, 256 at
+// 1,024; below M = 32 a warp holds 32 / M rows, one key a lane).  With
+// R = 4 a row takes 4 to 8 warps at the probe's shapes, so 256 rows of
+// 512 (or 64 of 1,024) keep every SM busy; R = 8 or one warp a row left
+// each warp a longer chain of dependent exchanges, and took longer.  A
+// stage of the network whose partner distance j is below R is a
+// compare-exchange between two of the thread's registers, with indices
+// fixed at compile time; up to 32 R it is a __shfl_xor_sync with lane
+// j / R; beyond (where a row spans warps) the keys cross through shared
+// memory between two barriers.  x is read as float4 where it is 16-byte
+// aligned, and also kept in shared memory, from which the sorted values
+// are read back by their column, so that -0.0 and NaN come out bit for
+// bit as they went in.  Values are written as float4 and indices as
+// 16-byte pairs.
+//
+// Design of the gated scale.  Up to kClusterMax = 262,144 elements (the
+// probe's block is 131,072), one launch: a thread-block cluster of up
+// to 16 blocks holds the whole array in registers, ORs "some element > 0"
+// and "some element is NaN" into each block's shared word, reads every
+// block's word through distributed shared memory after one cluster
+// barrier, then scales and writes what it holds; no flag in device memory
+// needs a reset.  Above kClusterMax, two kernels after a memset of the
+// flag word: the first ORs the two bits into it, the second scales.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kMaxM = 1024;
+constexpr int kMaxLogM = 10;
 
-// true when (va, ia) comes strictly before (vb, ib)
-template <bool kDescending>
-__device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
-  const bool na = isnan(va), nb = isnan(vb);
-  if (na || nb) {
-    if (na && nb) return ia < ib;
-    return kDescending ? na : nb;
-  }
-  if (va == vb) return ia < ib;
-  return kDescending ? va > vb : va < vb;
+// the order-preserving key of (v, column); flip = ~0u for descending
+__device__ __forceinline__ unsigned long long sort_key(float v, int col,
+                                                       unsigned flip) {
+  unsigned u = __float_as_uint(v);
+  if (v == 0.0f) u = 0u;                      // -0.0 as +0.0
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  if (isnan(v)) u = 0xffffffffu;              // every NaN above +inf
+  return ((unsigned long long)(u ^ flip) << 32) | (unsigned)col;
 }
 
-template <bool kDescending>
-__global__ void row_sort_kernel(const float* __restrict__ x,
-                                float* __restrict__ vals,
-                                long long* __restrict__ idx, int m) {
-  __shared__ float sv[kMaxM];
-  __shared__ int si[kMaxM];
-  const long long base = (long long)blockIdx.x * m;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    sv[i] = x[base + i];
-    si[i] = i;
-  }
-  __syncthreads();
-  for (int k = 2; k <= m; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < (m >> 1); p += blockDim.x) {
-        // the p-th pair of the stage: a has bit j clear, b = a | j
-        const int a = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int b = a | j;
-        const bool up = (a & k) == 0;   // this block of k sorts ascending
-        const float va = sv[a], vb = sv[b];
-        const int ia = si[a], ib = si[b];
-        if (before<kDescending>(vb, ib, va, ia) == up) {
-          sv[a] = vb; sv[b] = va;
-          si[a] = ib; si[b] = ia;
-        }
+// threads a row (T): 32 up to M = 128, then R = 4 keys a thread
+constexpr int row_threads(int log_m) {
+  return log_m <= 7 ? 32 : 1 << (log_m - 2);
+}
+
+template <int kLogM>
+struct Shape {
+  static constexpr int M = 1 << kLogM;
+  static constexpr int T = row_threads(kLogM);
+  static constexpr int R = M >= T ? M / T : 1;          // keys a thread
+  static constexpr int kRowsPerGroup = M >= T ? 1 : T / M;
+  static constexpr int kBlock = T > 128 ? T : 128;
+  static constexpr int kGroups = kBlock / T;            // row groups a block
+  static constexpr int kSpan = T * R;                   // a group's elements
+};
+
+// one stage of the network: partner distance j = 2^LJ within blocks of
+// k = 2^LK sorted up (ascending) or down
+template <int kLogM, int LK, int LJ>
+__device__ __forceinline__ void stage(unsigned long long (&key)[Shape<kLogM>::R],
+                                      int s, unsigned long long* xchg) {
+  using S = Shape<kLogM>;
+  constexpr int R = S::R, T = S::T, M = S::M;
+  constexpr int k = 1 << LK, j = 1 << LJ;
+  if constexpr (j < R) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if ((r & j) == 0) {
+        const bool up = (((s * R + r) & (M - 1)) & k) == 0;
+        unsigned long long& a = key[r];
+        unsigned long long& b = key[r | j];
+        const bool swap = (a > b) == up;
+        const unsigned long long lo = swap ? b : a, hi = swap ? a : b;
+        a = lo;
+        b = hi;
+      }
+    }
+  } else {
+    // j >= R: the partner of every key of this thread is the same
+    // register of thread s ^ (j / R); keep the smaller where this thread
+    // holds the lower position of an ascending pair or the upper of a
+    // descending one
+    const int e = (s * R) & (M - 1);
+    const bool keep_min = (((e & k) == 0) == ((e & j) == 0));
+    if constexpr (j < 32 * R) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const unsigned long long o =
+            __shfl_xor_sync(0xffffffffu, key[r], j / R);
+        key[r] = keep_min ? (o < key[r] ? o : key[r])
+                          : (o > key[r] ? o : key[r]);
+      }
+    } else {
+      static_assert(T > 32, "a row spans warps only for T > 32");
+#pragma unroll
+      for (int r = 0; r < R; ++r) xchg[r * T + s] = key[r];
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const unsigned long long o = xchg[r * T + (s ^ (j / R))];
+        key[r] = keep_min ? (o < key[r] ? o : key[r])
+                          : (o > key[r] ? o : key[r]);
       }
       __syncthreads();
     }
   }
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    vals[base + i] = sv[i];
-    idx[base + i] = si[i];
+}
+
+// stages (LK, LJ), (LK, LJ - 1), ..., (LK, 0), (LK + 1, LK), ... up to
+// (kLogM, 0)
+template <int kLogM, int LK, int LJ>
+__device__ __forceinline__ void network(unsigned long long (&key)[Shape<kLogM>::R],
+                                        int s, unsigned long long* xchg) {
+  if constexpr (LK <= kLogM) {
+    stage<kLogM, LK, LJ>(key, s, xchg);
+    if constexpr (LJ > 0)
+      network<kLogM, LK, LJ - 1>(key, s, xchg);
+    else
+      network<kLogM, LK + 1, LK>(key, s, xchg);
   }
+}
+
+template <int kLogM>
+__global__ void __launch_bounds__(Shape<kLogM>::kBlock)
+    row_sort_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                    long long* __restrict__ idx, int q, unsigned flip) {
+  using S = Shape<kLogM>;
+  constexpr int M = S::M, T = S::T, R = S::R;
+  // a copy of each group's rows, for the read-back by column; the keys'
+  // exchange buffer where a row spans warps
+  __shared__ float srow[S::kGroups * S::kSpan];
+  __shared__ unsigned long long xchg[T > 32 ? S::kGroups * R * T : 1];
+  const int g = threadIdx.x / T, s = threadIdx.x % T;
+  const long long row0 =
+      ((long long)blockIdx.x * S::kGroups + g) * S::kRowsPerGroup;
+  const bool valid = row0 + (s * R) / M < q;   // this thread's row exists
+  const long long off = row0 * M + (long long)s * R;
+  float* mine = srow + g * S::kSpan + s * R;
+  float v[R];
+  if (valid) {
+    if constexpr (R % 4 == 0) {
+      if ((reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+#pragma unroll
+        for (int r = 0; r < R; r += 4) {
+          const float4 f = __ldg(reinterpret_cast<const float4*>(x + off + r));
+          v[r] = f.x; v[r + 1] = f.y; v[r + 2] = f.z; v[r + 3] = f.w;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[r] = __ldg(x + off + r);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = __ldg(x + off + r);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = 0.0f;
+  }
+  unsigned long long key[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    mine[r] = v[r];
+    key[r] = sort_key(v[r], (s * R + r) & (M - 1), flip);
+  }
+  network<kLogM, 1, 0>(key, s, xchg + (T > 32 ? g * R * T : 0));
+  if constexpr (T > 32) __syncthreads(); else __syncwarp();
+  if (!valid) return;
+  // the group's copy of this thread's row starts at (s R) rounded down to M
+  const float* rowcopy = srow + g * S::kSpan + ((s * R) & ~(M - 1));
+  float outv[R];
+  long long outi[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int col = (int)(unsigned)key[r];
+    outi[r] = col;
+    outv[r] = rowcopy[col];
+  }
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < R; r += 4)
+      *reinterpret_cast<float4*>(vals + off + r) =
+          make_float4(outv[r], outv[r + 1], outv[r + 2], outv[r + 3]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) vals[off + r] = outv[r];
+  }
+  if constexpr (R % 2 == 0) {
+#pragma unroll
+    for (int r = 0; r < R; r += 2)
+      *reinterpret_cast<longlong2*>(idx + off + r) =
+          make_longlong2(outi[r], outi[r + 1]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) idx[off + r] = outi[r];
+  }
+}
+
+template <int kLogM>
+int launch_sort(const float* x, float* vals, long long* idx, int q,
+                unsigned flip, cudaStream_t st) {
+  using S = Shape<kLogM>;
+  const long long groups = ((long long)q + S::kRowsPerGroup - 1) /
+                           S::kRowsPerGroup;
+  const long long blocks = (groups + S::kGroups - 1) / S::kGroups;
+  row_sort_kernel<kLogM><<<(unsigned)blocks, S::kBlock, 0, st>>>(
+      x, vals, idx, q, flip);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kLogM>
+int dispatch_sort(int log_m, const float* x, float* vals, long long* idx,
+                  int q, unsigned flip, cudaStream_t st) {
+  if constexpr (kLogM > kMaxLogM) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (log_m == kLogM) return launch_sort<kLogM>(x, vals, idx, q, flip, st);
+    return dispatch_sort<kLogM + 1>(log_m, x, vals, idx, q, flip, st);
+  }
+}
+
+// ---- the gated scale ----
+
+constexpr int kScaleThreads = 512;
+constexpr int kClusterBlocks = 16;     // the H100's largest cluster
+constexpr int kMaxVec = 8;             // float4s a thread at most
+constexpr long long kClusterMax =
+    (long long)kClusterBlocks * kScaleThreads * 4 * kMaxVec;   // 262,144
+
+__device__ __forceinline__ unsigned flag_bits(float v) {
+  return (v > 0.0f ? 1u : 0u) | (isnan(v) ? 2u : 0u);
+}
+
+// one cluster of gridDim.x blocks; each thread holds 4 kVec elements:
+// kVec float4s where x and out are 16-byte aligned (kAligned), else 4 kVec
+// scalars, each slot's warp on consecutive elements either way; a slot
+// past n holds 0, which sets no bit
+template <int kVec, bool kAligned>
+__device__ __forceinline__ long long slot(long long first, int k, int c) {
+  return kAligned ? 4 * (first / 4 + k * kScaleThreads + threadIdx.x) + c
+                  : first + (4 * k + c) * kScaleThreads + threadIdx.x;
+}
+
+template <int kVec, bool kAligned>
+__global__ void __launch_bounds__(kScaleThreads)
+    scale_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
+                         long long n) {
+  __shared__ unsigned block_bits;
+  __shared__ unsigned all_bits;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) block_bits = 0u;
+  __syncthreads();
+  const long long first = (long long)blockIdx.x * kScaleThreads * 4 * kVec;
+  float v[4 * kVec];
+  unsigned bits = 0u;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    const long long e0 = slot<kVec, kAligned>(first, k, 0);
+    if (kAligned && e0 + 3 < n) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(x + e0));
+      v[4 * k] = f.x; v[4 * k + 1] = f.y; v[4 * k + 2] = f.z;
+      v[4 * k + 3] = f.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const long long e = slot<kVec, kAligned>(first, k, c);
+        v[4 * k + c] = e < n ? __ldg(x + e) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) bits |= flag_bits(v[4 * k + c]);
+  }
+  bits = __reduce_or_sync(0xffffffffu, bits);
+  if ((threadIdx.x & 31) == 0 && bits) atomicOr(&block_bits, bits);
+  cluster.sync();
+  if (threadIdx.x < 32) {
+    unsigned b = 0u;
+    if (threadIdx.x < cluster.num_blocks())
+      b = *cluster.map_shared_rank(&block_bits, threadIdx.x);
+    b = __reduce_or_sync(0xffffffffu, b);
+    if (threadIdx.x == 0) all_bits = b;
+  }
+  // no block may leave while another reads its word: arrive now, wait
+  // before returning
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  __syncthreads();
+  // x itself where the max is not above 0 (x * 1 would change a NaN's
+  // bits)
+  const bool twice = all_bits == 1u;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    float w[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      w[c] = twice ? 2.0f * v[4 * k + c] : v[4 * k + c];
+    const long long e0 = slot<kVec, kAligned>(first, k, 0);
+    if (kAligned && e0 + 3 < n) {
+      *reinterpret_cast<float4*>(out + e0) = make_float4(w[0], w[1], w[2],
+                                                         w[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const long long e = slot<kVec, kAligned>(first, k, c);
+        if (e < n) out[e] = w[c];
+      }
+    }
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+template <int kVec, bool kAligned>
+int launch_scale_cluster(const float* x, float* out, long long n,
+                         cudaStream_t st) {
+  const long long per_block = (long long)kScaleThreads * 4 * kVec;
+  const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
+  cudaError_t err;
+  if (blocks > 8) {   // clusters above 8 blocks are the H100's, not portable
+    err = cudaFuncSetAttribute(scale_cluster_kernel<kVec, kAligned>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks);
+  config.blockDim = dim3(kScaleThreads);
+  config.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, scale_cluster_kernel<kVec, kAligned>, x,
+                           out, n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kVec>
+int scale_in_one_cluster(const float* x, float* out, long long n,
+                         cudaStream_t st) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                       (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  return aligned ? launch_scale_cluster<kVec, true>(x, out, n, st)
+                 : launch_scale_cluster<kVec, false>(x, out, n, st);
 }
 
 __global__ void positive_or_nan_kernel(const float* __restrict__ x,
                                        long long n, unsigned* flag) {
   unsigned bits = 0;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const float v = x[i];
-    bits |= (v > 0.0f ? 1u : 0u) | (isnan(v) ? 2u : 0u);
-  }
+       i += (long long)gridDim.x * blockDim.x)
+    bits |= flag_bits(x[i]);
   bits = __reduce_or_sync(0xffffffffu, bits);
   if ((threadIdx.x & 31) == 0 && bits) atomicOr(flag, bits);
 }
@@ -101,10 +397,10 @@ __global__ void positive_or_nan_kernel(const float* __restrict__ x,
 __global__ void scale_by_flag_kernel(const float* __restrict__ x,
                                      float* __restrict__ out, long long n,
                                      const unsigned* flag) {
-  const float f = (*flag == 1u) ? 2.0f : 1.0f;
+  const bool twice = *flag == 1u;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x)
-    out[i] = x[i] * f;
+    out[i] = twice ? 2.0f * x[i] : x[i];
 }
 
 int grid_for(long long n, int threads) {
@@ -118,34 +414,38 @@ int grid_for(long long n, int threads) {
 // [1, 1024].  Returns the launch's cudaError_t (0 on success).
 extern "C" int gll_row_sort_f32(const void* x, void* vals, void* idx, int q,
                                 int m, int descending, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int threads = m / 2 < 32 ? 32 : (m / 2 > 512 ? 512 : m / 2);
-  if (descending) {
-    row_sort_kernel<true><<<q, threads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(vals),
-        static_cast<long long*>(idx), m);
-  } else {
-    row_sort_kernel<false><<<q, threads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(vals),
-        static_cast<long long*>(idx), m);
-  }
-  return static_cast<int>(cudaGetLastError());
+  int log_m = 0;
+  while ((1 << log_m) < m) ++log_m;
+  return dispatch_sort<0>(log_m, static_cast<const float*>(x),
+                          static_cast<float*>(vals),
+                          static_cast<long long*>(idx), q,
+                          descending ? 0xffffffffu : 0u,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // out = 2 x if max(x) > 0 else x, over n >= 1 elements; flag is one
-// unsigned word of scratch.  Returns the first cudaError_t (0 on success).
+// unsigned word of scratch, used above kClusterMax elements only.
+// Returns the first cudaError_t (0 on success).
 extern "C" int gll_scale_if_max_positive_f32(const void* x, void* out,
                                              void* flag, long long n,
                                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  // the fewest float4s a thread that fit n into one cluster, so that the
+  // array spreads over as many blocks as the cluster allows
+  const long long per_vec = (long long)kClusterBlocks * kScaleThreads * 4;
+  if (n <= per_vec) return scale_in_one_cluster<1>(xf, of, n, st);
+  if (n <= 2 * per_vec) return scale_in_one_cluster<2>(xf, of, n, st);
+  if (n <= 4 * per_vec) return scale_in_one_cluster<4>(xf, of, n, st);
+  if (n <= kClusterMax) return scale_in_one_cluster<8>(xf, of, n, st);
   cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   positive_or_nan_kernel<<<grid_for(n, 256), 256, 0, st>>>(
-      static_cast<const float*>(x), n, static_cast<unsigned*>(flag));
+      xf, n, static_cast<unsigned*>(flag));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   scale_by_flag_kernel<<<grid_for(n, 256), 256, 0, st>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), n,
-      static_cast<const unsigned*>(flag));
+      xf, of, n, static_cast<const unsigned*>(flag));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Kernel P1: a bitonic sort of each row in one block, and a scale gated on
+"""Kernel P1: a bitonic sort of each row in registers, and a scale gated on
 a reduced scalar.
 
 ``row_sort(x, descending=False)`` returns ``(values, indices)`` of each row
@@ -35,7 +35,7 @@ from . import _build
 __all__ = ["row_sort", "row_sort_plain", "scale_if_max_positive",
            "scale_if_max_positive_plain", "MAX_M"]
 
-MAX_M = 1024    # a row in one block's shared memory
+MAX_M = 1024    # a row in the registers of one block
 
 
 def row_sort_plain(x: torch.Tensor, descending: bool = False

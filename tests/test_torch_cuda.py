@@ -1059,3 +1059,128 @@ def test_take_along_equals_plain_on_card(cuda_device, m, n, axis):
         p2.take_along(x, idx.int(), axis)
     with pytest.raises(TypeError, match="float32"):
         p2.take_along(x.double(), idx, axis)
+
+
+# P1's sort at every power of two M (below 32 a warp holds several rows;
+# from 512 a row spans warps), Q not a multiple of the rows a block holds;
+# rows mixing -0.0, +0.0, +-inf, NaN and a few values, so that ties are
+# many and the values must come back bit for bit
+P1_SPECIALS = [-0.0, 0.0, float("inf"), float("-inf"), float("nan"), 1.0,
+               -1.0, 0.5]
+
+
+def _special_rows(q, m, seed):
+    gen = torch.Generator().manual_seed(seed)
+    pick = torch.randint(0, len(P1_SPECIALS) + 1, (q, m), generator=gen)
+    x = torch.randn((q, m), generator=gen)
+    for code, value in enumerate(P1_SPECIALS):
+        x[pick == code] = value
+    return x
+
+
+def _sorted_equal_bitwise(x, descending):
+    before = p1.row_sort.launches
+    vals, idx = p1.row_sort(x, descending)
+    torch.cuda.synchronize()
+    assert p1.row_sort.launches == before + 1
+    want_v, want_i = p1.row_sort_plain(x, descending)
+    assert torch.equal(idx, want_i)
+    assert torch.equal(vals.view(torch.int32), want_v.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("q", [1, 3, 257])
+@pytest.mark.parametrize("m", [2 ** e for e in range(11)])
+def test_row_sort_specials_every_width_on_card(cuda_device, m, q,
+                                               descending):
+    """P1 at every M from 1 to 1,024 and Q = 1, 3, 257, equal to
+    torch.sort(stable=True) in indices and in the values' bits."""
+    _sorted_equal_bitwise(_special_rows(q, m, seed=m + q).cuda(), descending)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 512, 1024])
+def test_row_sort_misaligned_view_on_card(cuda_device, m):
+    """A contiguous view one element into its storage (x not 16-byte
+    aligned): the scalar loads, the same order."""
+    flat = _special_rows(1, 5 * m + 1, seed=m).reshape(-1).cuda()
+    x = flat[1:].view(5, m)
+    assert x.data_ptr() % 16 != 0
+    for descending in (False, True):
+        _sorted_equal_bitwise(x, descending)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 1000, 131072, 262144, 262145,
+                               1000003])
+@pytest.mark.parametrize("case", ["positive", "negative", "nan"])
+def test_scale_if_max_positive_both_paths_on_card(cuda_device, n, case):
+    """The gated scale on both sides of the one-cluster limit (262,144
+    elements): a positive max, an all-negative array, a NaN among
+    positives; also on a view one element into its storage."""
+    gen = torch.Generator().manual_seed(n)
+    base = torch.randn(n + 1, generator=gen)
+    if case == "negative":
+        base = -base.abs() - 1e-3
+    elif case == "nan":
+        base = base.abs()
+        base[n // 2 + 1] = float("nan")
+    for x in (base[:n].cuda(), base.cuda()[1:]):
+        before = p1.scale_if_max_positive.launches
+        got = p1.scale_if_max_positive(x)
+        torch.cuda.synchronize()
+        assert p1.scale_if_max_positive.launches == before + 1
+        want = p1.scale_if_max_positive_plain(x)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _take_along_expected(x, idx, axis):
+    """torch.gather where the index is in range, NaN elsewhere."""
+    bound = x.shape[axis]
+    ok = (idx >= 0) & (idx < bound)
+    got = torch.gather(x, axis, idx.clamp(0, bound - 1))
+    return torch.where(ok, got, torch.full_like(got, float("nan")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("m,n", [(8191, 127), (3, 5), (37, 1), (1, 1),
+                                 (1024, 129)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_take_along_ragged_misaligned_on_card(cuda_device, m, n, axis,
+                                              offset):
+    """P2 where n is not a multiple of 4 (a scalar head and tail), n = 1,
+    and x and idx as contiguous views `offset` elements into their storage;
+    equal to torch.gather bit for bit."""
+    gen = torch.Generator().manual_seed(m * n + offset)
+    bound = m if axis == 0 else n
+    x = torch.randn(m * n + offset, generator=gen).cuda()[offset:].view(m, n)
+    idx = torch.randint(0, bound, (m * n + offset,),
+                        generator=gen).cuda()[offset:].view(m, n)
+    before = p2.take_along.launches
+    got = p2.take_along(x, idx, axis)
+    torch.cuda.synchronize()
+    assert p2.take_along.launches == before + 1
+    assert torch.equal(got, p2.take_along_plain(x, idx, axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("m,n", [(256, 128), (8191, 127), (3, 5)])
+def test_take_along_out_of_range_gives_nan_on_card(cuda_device, m, n, axis):
+    """Negative indices and indices at or past the axis's length give NaN
+    at their places; every other place is torch.gather's value."""
+    gen = torch.Generator().manual_seed(m + n + axis)
+    bound = m if axis == 0 else n
+    x = torch.randn((m, n), generator=gen).cuda()
+    idx = torch.randint(-3, bound + 3, (m, n), generator=gen)
+    idx[0, 0], idx[-1, -1] = -1, bound
+    idx = idx.cuda()
+    before = p2.take_along.launches
+    got = p2.take_along(x, idx, axis)
+    torch.cuda.synchronize()
+    assert p2.take_along.launches == before + 1
+    want = _take_along_expected(x, idx, axis)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.isnan(got[0, 0]) and torch.isnan(got[-1, -1])

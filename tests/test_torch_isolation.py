@@ -27,6 +27,7 @@ def _port_files():
     # tests, which import no JAX
     return files + [ROOT / "chip_smoke.py", ROOT / "k1_turns.py",
                     ROOT / "k2_turns.py", ROOT / "p3_turns.py",
+                    ROOT / "probes_turns.py",
                     ROOT / "mnist_fgsm_probe.py",
                     ROOT / "parallel_probe.py",
                     ROOT / "tests" / "torch_ranks.py"]
