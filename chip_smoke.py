@@ -97,8 +97,9 @@ each:
           <= 1e-6, device times as in k1 and the reckoned bound (no path
           calls K3);
   probes  kernels P1 (a bitonic row sort, ascending and descending, and a
-          scale gated on the array's max) and P2 (take_along_axis) at the
-          shapes of the TPU probes they replace, which no path calls: each
+          scale gated on the array's max, also above its one-cluster
+          limit) and P2 (take_along_axis) at the shapes of the TPU probes
+          they replace, which no path calls: each
           case once with its count read, then equal to its plain version
           (torch.sort(stable=True), torch.gather), its device ms beside
           the plain version's, torch.topk's / torch.take_along_dim's and
@@ -297,6 +298,9 @@ P3_CLASSES = (10, 100)     # CIFAR-10's and CIFAR-100's l
 P1_SHAPES = ((256, 512), (64, 1024))
 P2_CASES = ((256, 128, 0), (8192, 128, 0), (128, 128, 1), (128, 1024, 1),
             (8, 8192, 1), (65536, 128, 0))
+# P1's gated scale also above its one-cluster limit (262,144 elements), where
+# it takes its two-kernel path; odd, so that the vectors leave a tail
+P1_SCALE_LARGE = 1_000_003
 # H100 SXM peaks from NVIDIA's data sheet, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
@@ -1361,8 +1365,9 @@ def phase_ell() -> dict:
 
 def probe_inputs():
     """The probes phase's inputs on the card, from SEED: P1's blocks at
-    P1_SHAPES, the gated scale's block with a positive max and without
-    one, and P2's (x, idx) at each of P2_CASES."""
+    P1_SHAPES, the gated scale's block and an array of P1_SCALE_LARGE
+    elements, each with a positive max and without one, and P2's (x, idx)
+    at each of P2_CASES."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1370,6 +1375,9 @@ def probe_inputs():
               for q, m in P1_SHAPES}
     signs = {"positive": blocks[P1_SHAPES[0]],
              "negative": -blocks[P1_SHAPES[0]].abs()}
+    large = torch.randn(P1_SCALE_LARGE, generator=gen, device="cuda")
+    signs[f"positive_{P1_SCALE_LARGE}"] = large
+    signs[f"negative_{P1_SCALE_LARGE}"] = -large.abs()
     gathers = {}
     for m, n, axis in P2_CASES:
         gathers[(m, n, axis)] = (
@@ -1411,7 +1419,9 @@ def phase_probes() -> dict:
     """P1 and P2, the counterparts of the TPU probes, which no path calls.
     The probe run: P1's sort ascending and descending (the probe's sort and
     full lax.top_k) at each of P1_SHAPES and its gated scale on a block
-    with a positive max and on one without, P2 at each of P2_CASES, each
+    with a positive max and on one without (its one-cluster path), and on
+    P1_SCALE_LARGE elements each way (its two-kernel path), P2 at each of
+    P2_CASES, each
     once, with the counts set to 0 before and read after.  Then each
     output equal to its plain version's on the same input, and device ms
     (100 back-to-back launches) beside the plain version's, one library
@@ -3574,8 +3584,13 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launch_floor_ms")},
         "cases": probes["row_sort"],
+        "descending": probes["row_sort"]["256x512_desc"],
+        # the positive max at 256 x 512, every case's beside it
         "scale_if_max_positive": dict(
-            probes["scale"],
+            {key: probes["scale"]["positive"][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "launch_floor_ms")},
+            cases=probes["scale"],
             launches=probes["launches"]["scale_if_max_positive"]),
     }, {
         "name": "take_along",

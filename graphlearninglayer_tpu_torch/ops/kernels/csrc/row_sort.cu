@@ -54,8 +54,15 @@
 // and "some element is NaN" into each block's shared word, reads every
 // block's word through distributed shared memory after one cluster
 // barrier, then scales and writes what it holds; no flag in device memory
-// needs a reset.  Above kClusterMax, two kernels after a memset of the
-// flag word: the first ORs the two bits into it, the second scales.
+// needs a reset.  A thread holds kVec slots of 4 elements, float4s where x
+// and out are 16-byte aligned, else scalars (chosen at run time), in
+// ceil(n / (2,048 kVec)) blocks: kVec = 4 up to 131,072 elements (the
+// probe's block, 16 blocks), 8 up to the limit.  The slot count is a
+// template parameter: taken at run time (registers for 8 slots, the
+// unused ones predicated off) it cost 0.8 us of 5.0 at the probe's block.
+// Above kClusterMax, two kernels after a memset of the flag word: the
+// first ORs the two bits into it (one atomic a block), the second scales,
+// both on float4s where aligned.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -261,53 +268,55 @@ int dispatch_sort(int log_m, const float* x, float* vals, long long* idx,
 
 constexpr int kScaleThreads = 512;
 constexpr int kClusterBlocks = 16;     // the H100's largest cluster
-constexpr int kMaxVec = 8;             // float4s a thread at most
-constexpr long long kClusterMax =
-    (long long)kClusterBlocks * kScaleThreads * 4 * kMaxVec;   // 262,144
+constexpr long long kSlotSpan =        // one slot of each thread of a cluster
+    (long long)kClusterBlocks * kScaleThreads * 4;
+constexpr long long kClusterMax = 8 * kSlotSpan;   // 262,144
 
 __device__ __forceinline__ unsigned flag_bits(float v) {
   return (v > 0.0f ? 1u : 0u) | (isnan(v) ? 2u : 0u);
 }
 
-// one cluster of gridDim.x blocks; each thread holds 4 kVec elements:
-// kVec float4s where x and out are 16-byte aligned (kAligned), else 4 kVec
-// scalars, each slot's warp on consecutive elements either way; a slot
-// past n holds 0, which sets no bit
-template <int kVec, bool kAligned>
-__device__ __forceinline__ long long slot(long long first, int k, int c) {
-  return kAligned ? 4 * (first / 4 + k * kScaleThreads + threadIdx.x) + c
-                  : first + (4 * k + c) * kScaleThreads + threadIdx.x;
+// element c of slot k of this thread, in a block whose first element is
+// first: a float4 where x and out are 16-byte aligned, else 4 scalars,
+// each slot's warp on consecutive elements either way
+__device__ __forceinline__ long long slot(long long first, bool aligned,
+                                          int k, int c) {
+  return aligned ? first + 4 * (k * kScaleThreads + threadIdx.x) + c
+                 : first + (4 * k + c) * kScaleThreads + threadIdx.x;
 }
 
-template <int kVec, bool kAligned>
+// one cluster of gridDim.x blocks; each thread holds kVec slots in
+// registers; a slot past n holds 0, which sets no bit
+template <int kVec>
 __global__ void __launch_bounds__(kScaleThreads)
     scale_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
-                         long long n) {
+                         long long n, bool aligned) {
   __shared__ unsigned block_bits;
   __shared__ unsigned all_bits;
   cg::cluster_group cluster = cg::this_cluster();
   if (threadIdx.x == 0) block_bits = 0u;
   __syncthreads();
   const long long first = (long long)blockIdx.x * kScaleThreads * 4 * kVec;
+  // every load is issued before any value is used
   float v[4 * kVec];
-  unsigned bits = 0u;
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
-    const long long e0 = slot<kVec, kAligned>(first, k, 0);
-    if (kAligned && e0 + 3 < n) {
+    const long long e0 = slot(first, aligned, k, 0);
+    if (aligned && e0 + 3 < n) {
       const float4 f = __ldg(reinterpret_cast<const float4*>(x + e0));
       v[4 * k] = f.x; v[4 * k + 1] = f.y; v[4 * k + 2] = f.z;
       v[4 * k + 3] = f.w;
     } else {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const long long e = slot<kVec, kAligned>(first, k, c);
+        const long long e = slot(first, aligned, k, c);
         v[4 * k + c] = e < n ? __ldg(x + e) : 0.0f;
       }
     }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) bits |= flag_bits(v[4 * k + c]);
   }
+  unsigned bits = 0u;
+#pragma unroll
+  for (int r = 0; r < 4 * kVec; ++r) bits |= flag_bits(v[r]);
   bits = __reduce_or_sync(0xffffffffu, bits);
   if ((threadIdx.x & 31) == 0 && bits) atomicOr(&block_bits, bits);
   cluster.sync();
@@ -331,14 +340,14 @@ __global__ void __launch_bounds__(kScaleThreads)
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       w[c] = twice ? 2.0f * v[4 * k + c] : v[4 * k + c];
-    const long long e0 = slot<kVec, kAligned>(first, k, 0);
-    if (kAligned && e0 + 3 < n) {
+    const long long e0 = slot(first, aligned, k, 0);
+    if (aligned && e0 + 3 < n) {
       *reinterpret_cast<float4*>(out + e0) = make_float4(w[0], w[1], w[2],
                                                          w[3]);
     } else {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const long long e = slot<kVec, kAligned>(first, k, c);
+        const long long e = slot(first, aligned, k, c);
         if (e < n) out[e] = w[c];
       }
     }
@@ -346,14 +355,17 @@ __global__ void __launch_bounds__(kScaleThreads)
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-template <int kVec, bool kAligned>
-int launch_scale_cluster(const float* x, float* out, long long n,
+// n <= kVec kSlotSpan in one cluster
+template <int kVec>
+int scale_in_one_cluster(const float* x, float* out, long long n,
                          cudaStream_t st) {
   const long long per_block = (long long)kScaleThreads * 4 * kVec;
   const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                       (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   cudaError_t err;
   if (blocks > 8) {   // clusters above 8 blocks are the H100's, not portable
-    err = cudaFuncSetAttribute(scale_cluster_kernel<kVec, kAligned>,
+    err = cudaFuncSetAttribute(scale_cluster_kernel<kVec>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -369,43 +381,63 @@ int launch_scale_cluster(const float* x, float* out, long long n,
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, scale_cluster_kernel<kVec, kAligned>, x,
-                           out, n);
+  err = cudaLaunchKernelEx(&config, scale_cluster_kernel<kVec>, x, out, n,
+                           aligned);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kVec>
-int scale_in_one_cluster(const float* x, float* out, long long n,
-                         cudaStream_t st) {
-  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
-                       (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  return aligned ? launch_scale_cluster<kVec, true>(x, out, n, st)
-                 : launch_scale_cluster<kVec, false>(x, out, n, st);
-}
+constexpr int kWideThreads = 256;
+constexpr int kWideBlocks = 1056;      // 8 blocks on each of 132 SMs
 
-__global__ void positive_or_nan_kernel(const float* __restrict__ x,
-                                       long long n, unsigned* flag) {
-  unsigned bits = 0;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    bits |= flag_bits(x[i]);
+// the flag's two bits over x, one atomic a block (one a warp would queue
+// ~30,000 atomics on one word when the max is positive); float4s where x
+// is 16-byte aligned
+__global__ void __launch_bounds__(kWideThreads)
+    positive_or_nan_kernel(const float* __restrict__ x, long long n,
+                           bool aligned, unsigned* flag) {
+  __shared__ unsigned block_bits;
+  if (threadIdx.x == 0) block_bits = 0u;
+  __syncthreads();
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long n4 = aligned ? n / 4 : 0;
+  unsigned bits = 0u;
+  for (long long i = t; i < n4; i += stride) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(x) + i);
+    bits |= flag_bits(f.x) | flag_bits(f.y) | flag_bits(f.z) | flag_bits(f.w);
+  }
+  for (long long i = 4 * n4 + t; i < n; i += stride)
+    bits |= flag_bits(__ldg(x + i));
   bits = __reduce_or_sync(0xffffffffu, bits);
-  if ((threadIdx.x & 31) == 0 && bits) atomicOr(flag, bits);
+  if ((threadIdx.x & 31) == 0 && bits) atomicOr(&block_bits, bits);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_bits) atomicOr(flag, block_bits);
 }
 
-__global__ void scale_by_flag_kernel(const float* __restrict__ x,
-                                     float* __restrict__ out, long long n,
-                                     const unsigned* flag) {
+// out = 2 x if the flag is exactly "some element > 0", else x; float4s
+// where x and out are 16-byte aligned
+__global__ void __launch_bounds__(kWideThreads)
+    scale_by_flag_kernel(const float* __restrict__ x, float* __restrict__ out,
+                         long long n, bool aligned, const unsigned* flag) {
   const bool twice = *flag == 1u;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long n4 = aligned ? n / 4 : 0;
+  for (long long i = t; i < n4; i += stride) {
+    float4 f = __ldg(reinterpret_cast<const float4*>(x) + i);
+    if (twice) {
+      f.x *= 2.0f; f.y *= 2.0f; f.z *= 2.0f; f.w *= 2.0f;
+    }
+    reinterpret_cast<float4*>(out)[i] = f;
+  }
+  for (long long i = 4 * n4 + t; i < n; i += stride)
     out[i] = twice ? 2.0f * x[i] : x[i];
 }
 
-int grid_for(long long n, int threads) {
-  const long long blocks = (n + threads - 1) / threads;
-  return (int)(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
+int wide_grid(long long n) {
+  const long long blocks = (n + 4LL * kWideThreads - 1) / (4LL * kWideThreads);
+  return (int)(blocks < kWideBlocks ? blocks : kWideBlocks);
 }
 
 }  // namespace
@@ -432,20 +464,17 @@ extern "C" int gll_scale_if_max_positive_f32(const void* x, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   float* of = static_cast<float*>(out);
-  // the fewest float4s a thread that fit n into one cluster, so that the
-  // array spreads over as many blocks as the cluster allows
-  const long long per_vec = (long long)kClusterBlocks * kScaleThreads * 4;
-  if (n <= per_vec) return scale_in_one_cluster<1>(xf, of, n, st);
-  if (n <= 2 * per_vec) return scale_in_one_cluster<2>(xf, of, n, st);
-  if (n <= 4 * per_vec) return scale_in_one_cluster<4>(xf, of, n, st);
+  if (n <= 4 * kSlotSpan) return scale_in_one_cluster<4>(xf, of, n, st);
   if (n <= kClusterMax) return scale_in_one_cluster<8>(xf, of, n, st);
+  const bool x_aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool aligned = x_aligned && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  positive_or_nan_kernel<<<grid_for(n, 256), 256, 0, st>>>(
-      xf, n, static_cast<unsigned*>(flag));
+  positive_or_nan_kernel<<<wide_grid(n), kWideThreads, 0, st>>>(
+      xf, n, x_aligned, static_cast<unsigned*>(flag));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  scale_by_flag_kernel<<<grid_for(n, 256), 256, 0, st>>>(
-      xf, of, n, static_cast<const unsigned*>(flag));
+  scale_by_flag_kernel<<<wide_grid(n), kWideThreads, 0, st>>>(
+      xf, of, n, aligned, static_cast<const unsigned*>(flag));
   return static_cast<int>(cudaGetLastError());
 }

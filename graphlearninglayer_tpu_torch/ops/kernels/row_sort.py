@@ -6,7 +6,11 @@ of ``x`` (Q, M), M a power of two up to 1,024, sorted by (value, column
 index), or by (-value, column index) when ``descending``: of equal values
 the lower index comes first either way, which is ``torch.sort(...,
 stable=True)``'s order.  Descending over a whole row is the probe's
-``lax.top_k(x, M)``.  ``scale_if_max_positive(x)`` returns ``2 x`` where the
+``lax.top_k(x, M)``.  Every NaN counts as larger than every number,
+whatever its sign bit, as ``torch.sort`` has it on the CPU; on the card
+``torch.sort`` puts a NaN whose sign bit is set first, so there the kernel
+and :func:`row_sort_plain` part on such input, and the kernel keeps the
+CPU's order.  ``scale_if_max_positive(x)`` returns ``2 x`` where the
 array's max is above 0, else ``x``: the probe's ``pl.when(scalar)`` case.
 
 They replace the Pallas TPU probe ``benchmarks/probe_pallas_sort.py::run``

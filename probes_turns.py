@@ -13,8 +13,9 @@ which build and launch its own ``csrc/row_sort.cu`` and
 ``csrc/take_along.cu``.
 
 On the inputs of ``chip_smoke.py``'s ``probes`` phase (P1's sort at 256 x
-512 and 64 x 1,024 in both directions, its gated scale at 256 x 512 with a
-positive max and without, P2 at the probe's six cases) it prints one JSON
+512 and 64 x 1,024 in both directions, its gated scale at 256 x 512 and
+at 1,000,003 elements, each with a positive max and without, P2 at the
+probe's six cases) it prints one JSON
 line a case: both sides' device ms by ``chip_smoke.device_ms`` (100
 back-to-back launches, L2 warm), taken in turns (other, this, this,
 other), their ratio, the plain version's and the library call's ms (once

@@ -1063,10 +1063,10 @@ def test_take_along_equals_plain_on_card(cuda_device, m, n, axis):
 
 # P1's sort at every power of two M (below 32 a warp holds several rows;
 # from 512 a row spans warps), Q not a multiple of the rows a block holds;
-# rows mixing -0.0, +0.0, +-inf, NaN and a few values, so that ties are
-# many and the values must come back bit for bit
-P1_SPECIALS = [-0.0, 0.0, float("inf"), float("-inf"), float("nan"), 1.0,
-               -1.0, 0.5]
+# rows mixing -0.0, +0.0, +-inf, NaN with either sign bit and a few values,
+# so that ties are many and the values must come back bit for bit
+P1_SPECIALS = [-0.0, 0.0, float("inf"), float("-inf"), float("nan"),
+               -float("nan"), 1.0, -1.0, 0.5]
 
 
 def _special_rows(q, m, seed):
@@ -1079,11 +1079,15 @@ def _special_rows(q, m, seed):
 
 
 def _sorted_equal_bitwise(x, descending):
+    """P1 on the card against its plain version on the CPU, whose order
+    the kernel keeps: torch.sort on the card puts a NaN whose sign bit is
+    set first, the CPU every NaN last."""
     before = p1.row_sort.launches
     vals, idx = p1.row_sort(x, descending)
     torch.cuda.synchronize()
     assert p1.row_sort.launches == before + 1
-    want_v, want_i = p1.row_sort_plain(x, descending)
+    want_v, want_i = (t.to(x.device)
+                      for t in p1.row_sort_plain(x.cpu(), descending))
     assert torch.equal(idx, want_i)
     assert torch.equal(vals.view(torch.int32), want_v.view(torch.int32))
 
@@ -1095,7 +1099,8 @@ def _sorted_equal_bitwise(x, descending):
 def test_row_sort_specials_every_width_on_card(cuda_device, m, q,
                                                descending):
     """P1 at every M from 1 to 1,024 and Q = 1, 3, 257, equal to
-    torch.sort(stable=True) in indices and in the values' bits."""
+    torch.sort(stable=True) on the CPU in indices and in the values'
+    bits."""
     _sorted_equal_bitwise(_special_rows(q, m, seed=m + q).cuda(), descending)
 
 
@@ -1112,13 +1117,16 @@ def test_row_sort_misaligned_view_on_card(cuda_device, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 5, 1000, 131072, 262144, 262145,
-                               1000003])
+@pytest.mark.parametrize("n", [1, 5, 1000, 10000, 17000, 70000, 100000,
+                               120000, 131072, 140000, 200000, 262144,
+                               262145, 1000003])
 @pytest.mark.parametrize("case", ["positive", "negative", "nan"])
 def test_scale_if_max_positive_both_paths_on_card(cuda_device, n, case):
     """The gated scale on both sides of the one-cluster limit (262,144
-    elements): a positive max, an all-negative array, a NaN among
-    positives; also on a view one element into its storage."""
+    elements), below it in clusters of 1, 2, 3, 9, 13, 15 and 16 blocks
+    of four slots a thread and of 9, 13 and 16 of eight: a positive max,
+    an all-negative array, a NaN among positives; also on a view one
+    element into its storage."""
     gen = torch.Generator().manual_seed(n)
     base = torch.randn(n + 1, generator=gen)
     if case == "negative":
