@@ -39,6 +39,7 @@ from ..ops import laplace_learning, warn_exploding_grad
 from ..parallel.mesh import Mesh, RowShard
 from ..train.losses import custom_ce_loss
 from ..train.trainer import _to_device, resolve_device
+from ..utils.profiling import annotate, host_sync
 
 __all__ = ["fgsm_attack_step", "make_gl_fast_gradient_attack",
            "make_sharded_gl_fast_gradient_attack",
@@ -89,7 +90,8 @@ def gl_head(encode: Callable, num_classes: int, op_kw: dict, base_images,
     own_base = base_images[base.lo:base.hi]
 
     def scores(own, stats: dict | None = None):
-        feats = encode(torch.cat([own_base, own]))
+        with annotate("gl.encode"):
+            feats = encode(torch.cat([own_base, own]))
         feats = torch.cat([base.gather(feats[:len(own_base)]),
                            batch.gather(feats[len(own_base):])])
         y = F.one_hot(base_labels.long(), num_classes).to(feats.dtype)
@@ -109,10 +111,13 @@ def gl_scores(encode: Callable, num_classes: int, op_kw: dict, base_images,
 
 
 def input_grad(loss_fn: Callable, data: torch.Tensor) -> torch.Tensor:
-    """d loss_fn(data) / d data, and no other gradient."""
+    """d loss_fn(data) / d data, and no other gradient; the backward is
+    the span ``gl.backward``."""
     data = data.detach().requires_grad_(True)
     with torch.enable_grad():
-        (g,) = torch.autograd.grad(loss_fn(data), data)
+        loss = loss_fn(data)
+        with annotate("gl.backward"):
+            (g,) = torch.autograd.grad(loss, data)
     return g
 
 
@@ -125,6 +130,7 @@ def check_grad_norms(stats: list, grad_warn="default") -> None:
              if "out_norm" in s]
     if grad_warn is None or not pairs:
         return
+    host_sync("fgsm.grad_norms")
     big = torch.stack(pairs).amax(0).tolist()
     warn_exploding_grad(big[0], big[1], grad_warn)
 
@@ -133,7 +139,10 @@ def max_chol_info(stats: list) -> int:
     """The largest Cholesky info among op calls' ``stats`` dicts (0 when
     every factorization succeeded), in one transfer."""
     infos = [s["chol_info"] for s in stats if "chol_info" in s]
-    return int(torch.stack(infos).max().item()) if infos else 0
+    if not infos:
+        return 0
+    host_sync("fgsm.chol_info")
+    return int(torch.stack(infos).max().item())
 
 
 def _ce_loss(scores: Callable, labels, stats: list) -> Callable:

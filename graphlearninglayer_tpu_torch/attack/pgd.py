@@ -25,6 +25,7 @@ from typing import Callable
 import torch
 
 from ..train.trainer import _to_device, resolve_device
+from ..utils.profiling import annotate
 from .fgsm import _bound, check_grad_norms, gl_loss, input_grad, nll
 
 __all__ = ["make_gl_pgd_perturb", "make_mlp_pgd_perturb",
@@ -57,19 +58,22 @@ def pgd_iterations(loss_fn: Callable, start, images, alpha: float,
 def _gl_perturb(encode, num_classes, op_kw, eps, alpha, num_iters, grad_warn,
                 dev, base_images, base_labels, images, labels, generator,
                 min_val, max_val, stats):
-    base_images, images = _to_device(base_images, dev), \
-        _to_device(images, dev)
-    base_labels, labels = _to_device(base_labels, dev), \
-        _to_device(labels, dev)
-    lo, hi = _bound(min_val, images), _bound(max_val, images)
-    own = stats is None
-    stats = [] if own else stats
-    loss = gl_loss(encode, num_classes, op_kw, base_images, base_labels,
-                   labels, stats)
-    start = uniform_start(images, eps, generator, lo, hi)
-    adv = pgd_iterations(loss, start, images, alpha, eps, num_iters, lo, hi)
-    if own:
-        check_grad_norms(stats, grad_warn)
+    """The GL attack; the span ``pgd.attack``."""
+    with annotate("pgd.attack"):
+        base_images, images = _to_device(base_images, dev), \
+            _to_device(images, dev)
+        base_labels, labels = _to_device(base_labels, dev), \
+            _to_device(labels, dev)
+        lo, hi = _bound(min_val, images), _bound(max_val, images)
+        own = stats is None
+        stats = [] if own else stats
+        loss = gl_loss(encode, num_classes, op_kw, base_images, base_labels,
+                       labels, stats)
+        start = uniform_start(images, eps, generator, lo, hi)
+        adv = pgd_iterations(loss, start, images, alpha, eps, num_iters, lo,
+                             hi)
+        if own:
+            check_grad_norms(stats, grad_warn)
     return adv
 
 

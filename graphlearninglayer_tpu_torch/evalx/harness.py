@@ -11,7 +11,9 @@ lie on the device and no image crosses from the host.  With ``mesh=`` every
 rank encodes the whole set and a graph of at least ``shard_min_n`` nodes
 goes through the edge-partitioned solve over the ranks
 (``parallel/edge_shard.py``: each rank's KNN rows, then the halo-exchange
-CG).
+CG).  The transductive eval's spans are ``eval.encode`` and ``eval.solve``
+(``utils/profiling.py``), on the bounds of its ``encode_s`` and
+``solve_s``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from ..ops.transductive import eval_debug
 from ..train.trainer import (TrainState, make_encode_step,
                              make_encode_step_from_data, make_gl_eval_step,
                              make_mlp_eval_step, resolve_device)
+from ..utils.profiling import annotate, host_sync
 
 __all__ = ["encode_dataset", "encode_dataset_resident", "test_network",
            "test_gl_transductive"]
@@ -165,32 +168,39 @@ def test_gl_transductive(state: TrainState, base_images, base_labels,
         device = mesh.device
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    if resident is not None:
-        if norm is None:
-            raise ValueError("resident= needs norm=(mean, std)")
-        train_dev, test_dev, base_idx, image_shape = resident
-        train_f = encode_dataset_resident(state, train_dev, len(train_dev),
-                                          image_shape, norm, batch_size, dev)
-        test_f = encode_dataset_resident(state, test_dev, len(test_dev),
-                                         image_shape, norm, batch_size, dev)
-        base_f = train_f.index_select(
-            0, torch.as_tensor(np.asarray(base_idx), device=dev))
-        all_f = torch.cat([base_f, train_f, test_f])
-    else:
-        encode_step = make_encode_step(norm=norm, device=dev)
-        host_norm = normalize_fn if norm is None else None
-        parts = [encode_dataset(encode_step, state, base_images, host_norm,
-                                batch_size)]
-        if train_images is not None:
-            parts.append(encode_dataset(encode_step, state, train_images,
+    with annotate("eval.encode"):
+        if resident is not None:
+            if norm is None:
+                raise ValueError("resident= needs norm=(mean, std)")
+            train_dev, test_dev, base_idx, image_shape = resident
+            train_f = encode_dataset_resident(state, train_dev,
+                                              len(train_dev), image_shape,
+                                              norm, batch_size, dev)
+            test_f = encode_dataset_resident(state, test_dev, len(test_dev),
+                                             image_shape, norm, batch_size,
+                                             dev)
+            host_sync("harness.base_rows")
+            base_f = train_f.index_select(
+                0, torch.as_tensor(np.asarray(base_idx), device=dev))
+            all_f = torch.cat([base_f, train_f, test_f])
+        else:
+            encode_step = make_encode_step(norm=norm, device=dev)
+            host_norm = normalize_fn if norm is None else None
+            parts = [encode_dataset(encode_step, state, base_images,
+                                    host_norm, batch_size)]
+            if train_images is not None:
+                parts.append(encode_dataset(encode_step, state,
+                                            train_images, host_norm,
+                                            batch_size))
+            parts.append(encode_dataset(encode_step, state, test_images,
                                         host_norm, batch_size))
-        parts.append(encode_dataset(encode_step, state, test_images,
-                                    host_norm, batch_size))
-        all_f = torch.cat(parts)
-    y = torch.as_tensor(np.eye(num_classes, dtype=np.float32)[base_labels],
-                        device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+            all_f = torch.cat(parts)
+        host_sync("harness.labels")
+        y = torch.as_tensor(
+            np.eye(num_classes, dtype=np.float32)[base_labels], device=dev)
+        if dev.type == "cuda":
+            host_sync("harness.encoded")
+            torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
     n_nodes = int(all_f.shape[0])
     # k cannot exceed the node count (self included)
@@ -213,29 +223,36 @@ def test_gl_transductive(state: TrainState, base_images, base_labels,
                                     epsilon=epsilon, tau=tau,
                                     return_info=True, cache=cache)
 
-    if eval_debug():
-        # snapshot the eval features before the solve, so that a device
-        # fault cannot take them with it (a ring of two snapshots)
-        snap = all_f.cpu().numpy()
-        seq = getattr(test_gl_transductive, "_dbg_seq", 0)
-        test_gl_transductive._dbg_seq = seq + 1
-        tmp = tempfile.gettempdir()
-        np.save(os.path.join(tmp, f"gll_eval_debug_{seq % 2}.npy"), snap)
-        try:
+    with annotate("eval.solve"):
+        if eval_debug():
+            # snapshot the eval features before the solve, so that a
+            # device fault cannot take them with it (a ring of two
+            # snapshots)
+            host_sync("harness.debug_snapshot")
+            snap = all_f.cpu().numpy()
+            seq = getattr(test_gl_transductive, "_dbg_seq", 0)
+            test_gl_transductive._dbg_seq = seq + 1
+            tmp = tempfile.gettempdir()
+            np.save(os.path.join(tmp, f"gll_eval_debug_{seq % 2}.npy"),
+                    snap)
+            try:
+                u, cg_iters, cg_err = solve()
+            except Exception:
+                path = os.path.join(tmp, "gll_eval_failure_features.npz")
+                extra = {}
+                if cache is not None and cache.perm is not None:
+                    host_sync("harness.debug_perm")
+                    extra = {"cache_perm": cache.perm.cpu().numpy(),
+                             "cache_smax": cache.smax or -1,
+                             "cache_ovf": cache.ovf_cap or -1}
+                host_sync("harness.debug_labels")
+                np.savez(path, x=snap, y=y.cpu().numpy(), **extra)
+                print(f"eval features dumped to {path}")
+                raise
+        else:
             u, cg_iters, cg_err = solve()
-        except Exception:
-            path = os.path.join(tmp, "gll_eval_failure_features.npz")
-            extra = {}
-            if cache is not None and cache.perm is not None:
-                extra = {"cache_perm": cache.perm.cpu().numpy(),
-                         "cache_smax": cache.smax or -1,
-                         "cache_ovf": cache.ovf_cap or -1}
-            np.savez(path, x=snap, y=y.cpu().numpy(), **extra)
-            print(f"eval features dumped to {path}")
-            raise
-    else:
-        u, cg_iters, cg_err = solve()
-    pred = torch.argmax(u, dim=1).cpu().numpy()[-len(test_images):]
+        host_sync("harness.pred")
+        pred = torch.argmax(u, dim=1).cpu().numpy()[-len(test_images):]
     t2 = time.perf_counter()
     acc = 100.0 * float(np.mean(pred == np.asarray(test_labels)))
     print(f"Test set: Accuracy for GL predictor "

@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import host_sync
 from .graph import BatchGraph
 from .precision import full_f32
 
@@ -74,6 +75,7 @@ def chain_rank(cent: torch.Tensor) -> torch.Tensor:
     sq = torch.sum(cent * cent, dim=1)
     with full_f32():
         d2 = sq[:, None] + sq[None, :] - 2.0 * cent @ cent.T
+    host_sync("bsr.chain_distances")
     d2 = d2.cpu()
     d2 = d2 + torch.where(torch.eye(c, dtype=torch.bool), torch.inf, 0.0)
     used = torch.zeros((c,), dtype=torch.bool)
@@ -85,6 +87,7 @@ def chain_rank(cent: torch.Tensor) -> torch.Tensor:
         order.append(nxt)
     rank = torch.empty((c,), dtype=torch.long)
     rank[torch.tensor(order)] = torch.arange(c)
+    host_sync("bsr.chain_rank")
     return rank.to(cent.device)
 
 
@@ -150,8 +153,11 @@ def _finish_plan(g: BatchGraph, perm: torch.Tensor, block: int) -> BsrPlan:
 
     rows, cols, ok = _both_orientations(gp)
     key = torch.where(ok, (rows // block) * r_blk + cols // block, n_tiles)
-    tile_count = torch.bincount(key, minlength=n_tiles + 1)
-    tile_count[n_tiles] = 0
+    # a scatter-add of the valid edges, so that the sentinel bin stays 0:
+    # on the card, bincount and a write of a Python 0 into the bin would
+    # each make the host wait for the device
+    tile_count = torch.zeros((n_tiles + 1,), dtype=torch.long,
+                             device=dev).index_add_(0, key, ok.long())
 
     # densest-first rank of every tile within its block-row: a stable sort
     # by (block-row, -count) keeps ties in tile order (the JAX lexsort)

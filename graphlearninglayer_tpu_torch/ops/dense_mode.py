@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import annotate
 from .kernels.affinity import fused_affinity_sym
 from .knn import knn, pairwise_dist2
 from .solve import CholeskyFactor, cholesky_factor
@@ -123,14 +124,17 @@ def dense_affinity(g: DenseGraph, x: torch.Tensor | None = None,
 def dense_forward(g: DenseGraph, y: torch.Tensor, tau: float,
                   x: torch.Tensor | None = None, use_kernel: str = "auto"):
     """Solve (Luu + tau I) P = W_ul Y with one Cholesky; returns
-    ``(pred, (w, deg, factor))``."""
+    ``(pred, (w, deg, factor))``.  Spans ``gl.op.affinity`` (K1) and
+    ``gl.op.solve`` (the system, the factor and the solve)."""
     k_lab = y.shape[0]
-    w, _ = dense_affinity(g, x, use_kernel)
-    deg = torch.sum(w, dim=1)
-    luu = torch.diag(deg[k_lab:] + tau) - w[k_lab:, k_lab:]
-    rhs = w[k_lab:, :k_lab] @ y
-    factor = cholesky_factor(luu)
-    pred = factor.solve(rhs)
+    with annotate("gl.op.affinity"):
+        w, _ = dense_affinity(g, x, use_kernel)
+    with annotate("gl.op.solve"):
+        deg = torch.sum(w, dim=1)
+        luu = torch.diag(deg[k_lab:] + tau) - w[k_lab:, k_lab:]
+        rhs = w[k_lab:, :k_lab] @ y
+        factor = cholesky_factor(luu)
+        pred = factor.solve(rhs)
     return pred, (w, deg, factor)
 
 

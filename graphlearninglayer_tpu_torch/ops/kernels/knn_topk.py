@@ -55,6 +55,7 @@ import ctypes
 
 import torch
 
+from ...utils.profiling import host_sync
 from ..precision import full_f32
 from . import _build
 
@@ -116,6 +117,7 @@ def select_by_topk(d2: torch.Tensor, k: int, tie: torch.Tensor
     (one host sync decides whether any row is); then each row's k entries
     are put in (value, id) order."""
     vals, idx = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+    host_sync("knn.topk_ties")
     short = torch.nonzero((d2 <= vals[:, k - 1:]).sum(1) > k).squeeze(1)
     if len(short):
         idx[short] = select_by_sort(d2[short], k, tie)

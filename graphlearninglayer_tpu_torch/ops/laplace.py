@@ -31,6 +31,10 @@ Two modes, each a ``torch.autograd.Function``:
 The exploding-gradient check is done on the host where a step's metrics are
 read (:func:`warn_exploding_grad`), never inside the backward, so the
 backward adds no host synchronization.
+
+Spans (``utils/profiling.py``): ``gl.op.forward``, holding ``gl.op.knn``
+(distances and selection), ``gl.op.affinity`` (W; K1 in dense mode) and
+``gl.op.solve`` (the system and its solve), and ``gl.op.backward``.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import annotate
 from .dense_mode import DenseGraph, build_dense_graph, dense_backward, \
     dense_forward
 from .graph import (BatchGraph, build_graph, dense_weight_matrix,
@@ -85,8 +90,11 @@ class LaplaceConfig(NamedTuple):
 class _LaplaceDense(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, cfg: LaplaceConfig, stats: dict | None):
-        g = build_dense_graph(x, cfg.k, cfg.epsilon)
-        pred, (w, _, factor) = dense_forward(g, y, cfg.tau, x, cfg.use_kernel)
+        with annotate("gl.op.forward"):
+            with annotate("gl.op.knn"):
+                g = build_dense_graph(x, cfg.k, cfg.epsilon)
+            pred, (w, _, factor) = dense_forward(g, y, cfg.tau, x,
+                                                 cfg.use_kernel)
         # W is kept in the slot the JAX residuals call ``deg``
         ctx.save_for_backward(x, y, g.m_raw, g.d2, g.eps, g.nbr, w,
                               factor.chol, factor.info, pred)
@@ -100,11 +108,12 @@ class _LaplaceDense(torch.autograd.Function):
     def backward(ctx, gbar):
         x, y, m_raw, d2, eps, nbr, w, chol, info, pred = ctx.saved_tensors
         g = DenseGraph(m_raw=m_raw, d2=d2, eps=eps, nbr=nbr)
-        gx = dense_backward(g, y, pred, x, CholeskyFactor(chol, info), gbar,
-                            ctx.cfg.auto_eps, w=w)
-        if ctx.stats is not None:
-            ctx.stats["grad_norm"] = torch.linalg.vector_norm(gbar)
-            ctx.stats["out_norm"] = torch.linalg.vector_norm(gx)
+        with annotate("gl.op.backward"):
+            gx = dense_backward(g, y, pred, x, CholeskyFactor(chol, info),
+                                gbar, ctx.cfg.auto_eps, w=w)
+            if ctx.stats is not None:
+                ctx.stats["grad_norm"] = torch.linalg.vector_norm(gbar)
+                ctx.stats["out_norm"] = torch.linalg.vector_norm(gx)
         return gx, None, None, None
 
 
@@ -152,11 +161,15 @@ def _solve_luu(cfg: LaplaceConfig, g: BatchGraph, w, deg, k_lab: int, rhs,
 class _LaplaceEdge(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, cfg: LaplaceConfig, stats: dict | None):
-        g = build_graph(x, cfg.k, cfg.epsilon)
-        w, _ = edge_weights(g)
-        deg = sym_rowsum(g, w)
-        pred, factor, iters = _solve_luu(cfg, g, w, deg, y.shape[0],
-                                         _rhs(g, w, y))
+        with annotate("gl.op.forward"):
+            with annotate("gl.op.knn"):
+                g = build_graph(x, cfg.k, cfg.epsilon)
+            with annotate("gl.op.affinity"):
+                w, _ = edge_weights(g)
+                deg = sym_rowsum(g, w)
+            with annotate("gl.op.solve"):
+                pred, factor, iters = _solve_luu(cfg, g, w, deg, y.shape[0],
+                                                 _rhs(g, w, y))
         chol = (factor.chol, factor.info) if factor is not None else ()
         ctx.save_for_backward(x, y, g.nbr, g.dist2, g.coef, g.eps, deg, pred,
                               *chol)
@@ -171,50 +184,52 @@ class _LaplaceEdge(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar):
-        x, y, nbr, dist2, coef, eps, deg, pred, *chol = ctx.saved_tensors
-        cfg = ctx.cfg
-        g = BatchGraph(nbr=nbr, dist2=dist2, coef=coef, eps=eps)
-        n, k = nbr.shape
-        k_lab = y.shape[0]
-        w, v = edge_weights(g)
-        # adjoint solve against the same regularized Luu: the forward's
-        # factor, or the same preconditioned operator for CG
-        factor = CholeskyFactor(*chol) if chol else None
-        wu, _, iters = _solve_luu(cfg, g, w, deg, k_lab, gbar, factor)
-        if ctx.stats is not None and iters is not None:
-            ctx.stats["cg_iters_bwd"] = iters
+        with annotate("gl.op.backward"):
+            x, y, nbr, dist2, coef, eps, deg, pred, *chol = ctx.saved_tensors
+            cfg = ctx.cfg
+            g = BatchGraph(nbr=nbr, dist2=dist2, coef=coef, eps=eps)
+            n, k = nbr.shape
+            k_lab = y.shape[0]
+            w, v = edge_weights(g)
+            # adjoint solve against the same regularized Luu: the forward's
+            # factor, or the same preconditioned operator for CG
+            factor = CholeskyFactor(*chol) if chol else None
+            wu, _, iters = _solve_luu(cfg, g, w, deg, k_lab, gbar, factor)
+            if ctx.stats is not None and iters is not None:
+                ctx.stats["cg_iters_bwd"] = iters
 
-        # pad the adjoint with zeros on labeled rows; labels above P
-        wfull = torch.cat([wu.new_zeros((k_lab, wu.shape[1])), wu])
-        f = torch.cat([y.to(pred.dtype), pred])
+            # pad the adjoint with zeros on labeled rows; labels above P
+            wfull = torch.cat([wu.new_zeros((k_lab, wu.shape[1])), wu])
+            f = torch.cat([y.to(pred.dtype), pred])
 
-        # per-edge SDDMM: G_e = sum_c (w_i - w_j)(F_j - F_i)
-        g_edge = torch.sum((wfull[:, None, :] - wfull[nbr])
-                           * (f[nbr] - f[:, None, :]), dim=-1)      # (n, k)
+            # per-edge SDDMM: G_e = sum_c (w_i - w_j)(F_j - F_i)
+            g_edge = torch.sum((wfull[:, None, :] - wfull[nbr])
+                               * (f[nbr] - f[:, None, :]), dim=-1)  # (n, k)
 
-        # dX = Lap(G o V) X: per directed edge with its symmetrization
-        # coefficient, row i gets +t (x_i - x_j) and row j gets -t (x_i - x_j)
-        t = coef * g_edge * v
-        weighted = t[:, :, None] * (x[:, None, :] - x[nbr])         # (n,k,d)
-        flat = nbr.reshape(-1)
-        gx = torch.sum(weighted, dim=1).index_add(
-            0, flat, -weighted.reshape(n * k, -1))
+            # dX = Lap(G o V) X: per directed edge with its
+            # symmetrization coefficient, row i gets +t (x_i - x_j) and
+            # row j gets -t (x_i - x_j)
+            t = coef * g_edge * v
+            weighted = t[:, :, None] * (x[:, None, :] - x[nbr])   # (n,k,d)
+            flat = nbr.reshape(-1)
+            gx = torch.sum(weighted, dim=1).index_add(
+                0, flat, -weighted.reshape(n * k, -1))
 
-        if cfg.auto_eps:
-            # self-tuning-bandwidth term: b_i = sum_j G_ij mod_V_ij with
-            # mod_V_ij = d^2 V_ij / (2 eps_i^2), then for each node u with
-            # k-th neighbor K(u): dX_u += b_u (x_K - x_u), dX_K -= the same
-            base = coef * g_edge * dist2 * v * 0.5
-            b = torch.sum(base / (eps[:, None] ** 2), dim=1).index_add(
-                0, flat, (base / (eps[nbr] ** 2)).reshape(-1))
-            kth = g.kth
-            term = b[:, None] * (x[kth] - x)
-            gx = (gx + term).index_add(0, kth, -term)
+            if cfg.auto_eps:
+                # self-tuning-bandwidth term: b_i = sum_j G_ij mod_V_ij with
+                # mod_V_ij = d^2 V_ij / (2 eps_i^2), then for each node u with
+                # k-th neighbor K(u): dX_u += b_u (x_K - x_u), dX_K -= the same
+                base = coef * g_edge * dist2 * v * 0.5
+                b = torch.sum(base / (eps[:, None] ** 2), dim=1).index_add(
+                    0, flat, (base / (eps[nbr] ** 2)).reshape(-1))
+                kth = g.kth
+                term = b[:, None] * (x[kth] - x)
+                gx = (gx + term).index_add(0, kth, -term)
 
-        if ctx.stats is not None:
-            ctx.stats["grad_norm"] = torch.linalg.vector_norm(gbar)
-            ctx.stats["out_norm"] = torch.linalg.vector_norm(gx)
-        return gx, None, None, None
+            if ctx.stats is not None:
+                ctx.stats["grad_norm"] = torch.linalg.vector_norm(gbar)
+                ctx.stats["out_norm"] = torch.linalg.vector_norm(gx)
+            return gx, None, None, None
 
 
 def laplace_learning(x: torch.Tensor, y: torch.Tensor, tau: float = 0.0,

@@ -13,12 +13,18 @@ The factorization is ``torch.linalg.cholesky_ex``: unlike
 ``torch.linalg.cholesky`` it does not synchronize with the host to check
 the result.  Its ``info`` (0 on success, else the order of the first
 non-positive leading minor) stays a device tensor for the caller to report.
+
+CG's trace (``utils/profiling.py``): ``stable_conjgrad.iterations`` counts
+every iteration of every solve; each residual check on the host is a span
+``eval.cg.check`` and a ``host_sync("solve.cg_check")``.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..utils.profiling import annotate, host_sync
 
 __all__ = ["CholeskyFactor", "cholesky_factor", "cholesky_solve",
            "stable_conjgrad"]
@@ -61,7 +67,9 @@ def stable_conjgrad(matvec: Callable[[torch.Tensor], torch.Tensor],
 
     ``matvec`` is a linear operator on (m, l) tensors, applied column-wise;
     ``b`` is (m, l).  ``tol`` is taken in ``b``'s dtype, as the JAX package
-    does.  The loop checks the residual on the host once per iteration.
+    does.  The loop checks the residual on the host before every iteration
+    and after the last: iterations + 1 checks when the residual ends the
+    solve, iterations when ``max_iter`` does.
     ``return_info=True`` returns ``(x, iterations, final residual)``, the
     residual as a 0-d tensor.  ``colsum``: the (l,) column sums of an
     (m, l) tensor (``torch.sum(v, dim=0)`` by default); a row-sharded
@@ -73,7 +81,8 @@ def stable_conjgrad(matvec: Callable[[torch.Tensor], torch.Tensor],
         colsum = lambda v: torch.sum(v, dim=0)
     if x0 is None:
         x0 = torch.zeros_like(b)
-    tol_t = torch.tensor(tol, dtype=b.dtype, device=b.device)
+    # a CPU scalar: the device ops take it as an argument, with no copy
+    tol_t = torch.tensor(tol, dtype=b.dtype)
     tol2 = tol_t * tol_t
 
     x = x0
@@ -82,7 +91,7 @@ def stable_conjgrad(matvec: Callable[[torch.Tensor], torch.Tensor],
     rs = colsum(r * r)
     err = torch.sqrt(torch.max(rs))
     iters = 0
-    while iters < max_iter and bool(err > tol_t):
+    while iters < max_iter and _above(err, tol_t):
         ap = matvec(p)
         pap = colsum(p * ap)
         live = rs > tol2
@@ -97,6 +106,17 @@ def stable_conjgrad(matvec: Callable[[torch.Tensor], torch.Tensor],
         p = r + beta * p
         rs = rsnew
         iters += 1
+        stable_conjgrad.iterations += 1
     if return_info:
         return x, iters, err
     return x
+
+
+stable_conjgrad.iterations = 0
+
+
+def _above(err: torch.Tensor, tol_t: torch.Tensor) -> bool:
+    """CG's residual check, read on the host."""
+    with annotate("eval.cg.check"):
+        host_sync("solve.cg_check")
+        return bool(err > tol_t)

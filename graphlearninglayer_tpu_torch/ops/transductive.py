@@ -21,6 +21,12 @@ Four matvec modes, the same as the JAX package's:
 The CG loop checks its residual on the host once per iteration.  Set
 ``GLL_EVAL_DEBUG`` to anything but "0" for the planning printouts.
 
+The trace (``utils/profiling.py``): spans ``eval.knn`` (the graph, K2),
+``eval.plan`` (the BSR plan and its budgets) and ``eval.cg`` (the whole
+Jacobi CG, its checks ``eval.cg.check`` inside); :data:`bsr_plans` counts
+the BSR plans made, by route, and every read of a device result here is a
+``host_sync``.
+
 ``GLL_BANDED_KNN=1`` (opt-in, as in the JAX package) builds the graph of a
 cached eval of at least ``GLL_BANDED_MIN_N`` nodes (default 16,384) with the
 certificate-banded KNN (ops/knn_banded.py), steered by the cache's last
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import annotate, host_sync
 from .bsr import (bsr_plan, bsr_plan_from_perm, bsr_spmm, bsr_stats,
                   build_bsr_mat)
 from .graph import (build_graph, build_sym_ell, edge_weights, ell_cap,
@@ -43,7 +50,13 @@ from .graph import (build_graph, build_sym_ell, edge_weights, ell_cap,
 from .knn_banded import banded_knn
 from .solve import stable_conjgrad
 
-__all__ = ["one_hot_encode", "transductive_laplace", "EvalGraphCache"]
+__all__ = ["one_hot_encode", "transductive_laplace", "EvalGraphCache",
+           "bsr_plans"]
+
+# BSR plans made, by route: 'from_perm' (tiles under the cache's
+# permutation), 'fresh' (k-means, no permutation to reuse) and
+# 'stale_replan' (k-means after the cached permutation proved stale)
+bsr_plans = {"fresh": 0, "from_perm": 0, "stale_replan": 0}
 
 
 def eval_debug() -> bool:
@@ -114,6 +127,7 @@ def _finish(result, tol: float = 1e-10, return_info: bool = False):
     non-convergence warning on the host.  ``return_info`` also returns
     (iters, err) as Python numbers."""
     pred, iters, err = result
+    host_sync("transductive.finish")
     err = float(err)
     if err > tol:
         print(f"max iter reached:  {int(iters)}  iters")
@@ -136,6 +150,7 @@ def _build_with_cache(x, knn_num: int, epsilon, knn_block: int,
         cache.banded_skip -= 1
         use_banded = False
     if use_banded:
+        host_sync("transductive.banded_perm")
         perm = cache.perm.cpu().numpy().astype(np.int64)
         if len(perm) == n:
             nbr, dist2, frac = banded_knn(x, knn_num, perm, block=256,
@@ -156,24 +171,26 @@ def _build_with_cache(x, knn_num: int, epsilon, knn_block: int,
 
 def _jacobi_cg(matvec, deg, y, tau, k_lab):
     """Pred = M cg(M Luu M, M (W_ul Y)) on the unlabeled rows, with
-    M = diag(Luu)^(-1/2).  Returns (pred, iters, final_err)."""
-    n = deg.shape[0]
-    m = n - k_lab
-    dt = torch.promote_types(deg.dtype, y.dtype)
-    y = y.to(dt)
-    y_full = torch.cat([y, y.new_zeros((m, y.shape[1]))])
-    rhs = matvec(y_full)[k_lab:]                   # -Lul @ Y
+    M = diag(Luu)^(-1/2).  Returns (pred, iters, final_err).  The span
+    ``eval.cg``."""
+    with annotate("eval.cg"):
+        n = deg.shape[0]
+        m = n - k_lab
+        dt = torch.promote_types(deg.dtype, y.dtype)
+        y = y.to(dt)
+        y_full = torch.cat([y, y.new_zeros((m, y.shape[1]))])
+        rhs = matvec(y_full)[k_lab:]                   # -Lul @ Y
 
-    diag = deg[k_lab:] + tau
-    mscale = (1.0 / torch.sqrt(diag + 1e-10))[:, None]
+        diag = deg[k_lab:] + tau
+        mscale = (1.0 / torch.sqrt(diag + 1e-10))[:, None]
 
-    def mv(p):
-        p = mscale * p
-        wp = matvec(F.pad(p, (0, 0, k_lab, 0)))[k_lab:]
-        return mscale * (diag[:, None] * p - wp)
+        def mv(p):
+            p = mscale * p
+            wp = matvec(F.pad(p, (0, 0, k_lab, 0)))[k_lab:]
+            return mscale * (diag[:, None] * p - wp)
 
-    z, iters, err = stable_conjgrad(mv, mscale * rhs, return_info=True)
-    return mscale * z, iters, err
+        z, iters, err = stable_conjgrad(mv, mscale * rhs, return_info=True)
+        return mscale * z, iters, err
 
 
 def _solve_ell(g, y, cap: int, ovf_cap: int, tau: float):
@@ -242,17 +259,38 @@ def _transductive_bsr(x, g, y, tau: float, block: int, max_tile_bytes: int,
     if budget < 8:                                 # cannot honor the cap
         return None
 
+    with annotate("eval.plan"):
+        plan, smax, ovf_cap = _bsr_budgets(x, g, k_lab, block, budget,
+                                           cache)
+    if plan is None:                               # no block structure
+        return None
+    res = _solve_bsr(plan, y, block, smax, ovf_cap, float(tau))
+    if cache is not None:
+        cache.n, cache.k_lab = n, k_lab
+        cache.perm = plan.perm
+        cache.smax, cache.ovf_cap = smax, ovf_cap
+    return res
+
+
+def _bsr_budgets(x, g, k_lab: int, block: int, budget: int,
+                 cache: EvalGraphCache | None):
+    """The BSR plan (from the cache's permutation while it still tiles
+    the graph, else afresh) and its slot and overflow budgets: ``(plan,
+    smax, ovf_cap)``, or ``(None, None, None)`` when the graph has no
+    block structure."""
+    n = x.shape[0]
     cached_perm = (cache.perm if cache is not None
                    and cache.matches(n, k_lab) else None)
     dbg = print if eval_debug() else (lambda *a, **k: None)
 
-    def make_plan(perm):
-        dbg(f"  [bsr: plan from_perm={perm is not None}]", flush=True)
+    def make_plan(perm, route):
+        bsr_plans[route] += 1
         if perm is not None:
             plan = bsr_plan_from_perm(g, perm, block)
         else:
             n_clusters = max(8, min(512, n // 1024))
             plan = bsr_plan(x, g, k_lab, n_clusters, block)
+        host_sync("transductive.plan_stats")
         hist = bsr_stats(plan, block).cpu().numpy().astype(np.int64)
         dbg("  [bsr: stats done]", flush=True)
         return plan, np.cumsum(hist)
@@ -273,16 +311,15 @@ def _transductive_bsr(x, g, y, tau: float, block: int, max_tile_bytes: int,
 
         return total, smax_min, ovf_at, capped
 
-    plan, cum = make_plan(cached_perm)
+    plan, cum = make_plan(cached_perm, "fresh" if cached_perm is None
+                          else "from_perm")
     total, smax_min, ovf_at, capped = _coverage(cum)
     if (cached_perm is not None
             and ovf_at(capped(smax_min)) > 0.25 * total):
         # stale permutation: under the capped slot count the cached
         # ordering no longer tiles this graph; plan afresh once
-        dbg("  [bsr: cached perm stale, replanning]", flush=True)
-        plan, cum = make_plan(None)
+        plan, cum = make_plan(None, "stale_replan")
         total, smax_min, ovf_at, capped = _coverage(cum)
-        cached_perm = None
 
     # sticky budgets, decided per component: reuse the cached slot count
     # while it still covers the requirement within the budget, and the
@@ -297,7 +334,7 @@ def _transductive_bsr(x, g, y, tau: float, block: int, max_tile_bytes: int,
         smax = smax_req
     ovf = ovf_at(smax)
     if ovf > 0.25 * total:                         # no block structure
-        return None
+        return None, None, None
     if cache_ok and cache.ovf_cap is not None and ovf <= cache.ovf_cap:
         ovf_cap = cache.ovf_cap
     else:
@@ -306,12 +343,7 @@ def _transductive_bsr(x, g, y, tau: float, block: int, max_tile_bytes: int,
     dbg(f"  [bsr: solve smax={smax} ovf_cap={ovf_cap} "
         f"smax_min={smax_min} total={total}]",
         flush=True)
-    res = _solve_bsr(plan, y, block, smax, ovf_cap, float(tau))
-    if cache is not None:
-        cache.n, cache.k_lab = n, k_lab
-        cache.perm = plan.perm
-        cache.smax, cache.ovf_cap = smax, ovf_cap
-    return res
+    return plan, smax, ovf_cap
 
 
 def transductive_laplace(x, y, knn_num: int = 50, epsilon="auto",
@@ -346,7 +378,9 @@ def transductive_laplace(x, y, knn_num: int = 50, epsilon="auto",
             cache.n, cache.k_lab = n, k_lab
         return _finish(res, return_info=return_info)
 
-    g = _build_with_cache(x, knn_num, epsilon, knn_block, cache, n, k_lab)
+    with annotate("eval.knn"):
+        g = _build_with_cache(x, knn_num, epsilon, knn_block, cache, n,
+                              k_lab)
     if mode == "bsr":
         # the tile budget depends on the data; if the tiles exceed device
         # memory, degrade to 'sorted' instead of ending a training run
@@ -373,7 +407,9 @@ def transductive_laplace(x, y, knn_num: int = 50, epsilon="auto",
                        return_info=return_info)
     # ELL width = bucketed max in-degree, bounded by ell_cap_limit; hub rows'
     # in-edges beyond it go to the COO overflow (bucketed too)
+    host_sync("transductive.ell_width")
     cap = min(ell_cap(int(max_in_degree(g))), ell_cap_limit)
+    host_sync("transductive.ell_overflow")
     ovf = int(overflow_count(g, cap))
     ovf_cap = 0 if ovf == 0 else -(-ovf // 4096) * 4096
     return _finish(_solve_ell(g, y, cap, ovf_cap, float(tau)),

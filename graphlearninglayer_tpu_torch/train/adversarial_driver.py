@@ -48,6 +48,7 @@ from ..models import (BuildNet, Dropout, PreActResNetFeat, SmallCNN,
 from ..ops import laplace_learning
 from ..utils.checkpoint import save_checkpoint
 from ..utils.meters import drain_correct
+from ..utils.profiling import annotate, host_sync
 from .losses import custom_ce_loss
 from .trainer import _zero_grads, create_train_state, resolve_device
 
@@ -175,19 +176,23 @@ def _eval_logp(model, x):
 def _gl_train_step(state, num_classes: int, op_kw: dict, base_x, base_y,
                    x, y):
     """One GL step: the graph head over the base + batch features in train
-    mode, the custom CE, one update.  Returns (loss, op stats)."""
+    mode, the custom CE, one update.  Returns (loss, op stats).  The spans
+    of ``trainer.py``'s GL step."""
     model = state.model
     model.train()
     stats: dict = {}
-    feats = _features(model(torch.cat([base_x, x])))
+    with annotate("gl.encode"):
+        feats = _features(model(torch.cat([base_x, x])))
     onehot = F.one_hot(base_y, num_classes).to(feats.dtype)
     pred = laplace_learning(feats, onehot, stats=stats, **op_kw)
     loss = custom_ce_loss(pred, y)
-    _zero_grads(model)
-    loss.backward()
-    state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
+    with annotate("gl.update"):
+        _zero_grads(model)
+        with annotate("gl.backward"):
+            loss.backward()
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
     return loss.detach(), stats
 
 
@@ -300,6 +305,7 @@ def run(model_type: str, rob_or_nat: str, dataset: str,
                 sel = order[i * cfg.batch_size:(i + 1) * cfg.batch_size]
                 losses.append(step(state, train_x[sel], train_y[sel], stats))
             # the epoch's losses, Cholesky infos and norms, read once
+            host_sync("adversarial.epoch_loss")
             mean_loss = torch.stack(losses).mean().item()
             chol_info = max(chol_info, max_chol_info(stats))
             check_grad_norms(stats)

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 
 from ..ops import laplace_learning, warn_exploding_grad
 from ..parallel.mesh import Mesh, RowShard
+from ..utils.profiling import annotate, host_sync
 from .losses import custom_ce_loss
 from .optim import make_optimizer
 
@@ -116,10 +117,14 @@ def _device_normalize(x: torch.Tensor, norm) -> torch.Tensor:
 
     ``norm=(mean, std)`` per channel; ``norm=None`` expects already-
     normalized float NHWC input.  Same formula as the JAX package's
-    ``data/augment.py::normalize_batch``, in float32."""
+    ``data/augment.py::normalize_batch``, in float32.  The mean and std
+    are copied to the device on each call, and the host waits for both
+    copies (two ``host_sync`` sites)."""
     if norm is not None:
         mean, std = norm
         x = x.float() / 255.0
+        host_sync("trainer.normalize_mean")
+        host_sync("trainer.normalize_std")
         x = ((x - torch.as_tensor(mean, dtype=torch.float32, device=x.device))
              / torch.as_tensor(std, dtype=torch.float32, device=x.device))
     return x.permute(0, 3, 1, 2)
@@ -156,7 +161,9 @@ def _gl_update(state: TrainState, x: torch.Tensor, base_labels,
     first): encode, the graph head with base labels, CE on the batch
     labels, one optimizer update.  Returns ``(state, metrics, scores)``.
     With ``shard``, ``x`` holds this rank's rows only (see the module
-    docstring)."""
+    docstring).  Spans: ``gl.encode``, the op's ``gl.op.*``, and
+    ``gl.update`` around the gradients' zeroing, ``gl.backward`` and the
+    optimizer's step with the step's metrics."""
     model = state.model
     model.train()
     if shard is not None:
@@ -166,31 +173,36 @@ def _gl_update(state: TrainState, x: torch.Tensor, base_labels,
                   num_classes).to(x.dtype)
 
     stats: dict = {}
-    _, features = model(x)
-    if shard is not None:
-        features = shard.gather(features)
+    with annotate("gl.encode"):
+        _, features = model(x)
+        if shard is not None:
+            features = shard.gather(features)
     pred = laplace_learning(features, y, stats=stats, **op_kw)
     loss = custom_ce_loss(pred, labels)
-    _zero_grads(model)
-    loss.backward()
-    if shard is not None:
-        shard.reduce_grads(model)
-    state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
+    with annotate("gl.update"):
+        _zero_grads(model)
+        with annotate("gl.backward"):
+            loss.backward()
+            if shard is not None:
+                shard.reduce_grads(model)
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
 
-    pred = pred.detach()
-    acc = torch.mean((torch.argmax(pred, dim=1) == labels).float())
-    metrics = {"loss": loss.detach(), "acc": acc,
-               "params_finite": params_finite(model.parameters()),
-               "grad_norm": stats["grad_norm"],
-               "out_norm": stats["out_norm"]}
-    if "chol_info" in stats:
-        metrics["chol_info"] = stats["chol_info"]
-    else:
-        metrics["cg_iters"] = torch.tensor(
-            stats["cg_iters"] + stats["cg_iters_bwd"], device=dev)
-    return state, metrics, _scores(pred, labels, score_type)
+        pred = pred.detach()
+        acc = torch.mean((torch.argmax(pred, dim=1) == labels).float())
+        metrics = {"loss": loss.detach(), "acc": acc,
+                   "params_finite": params_finite(model.parameters()),
+                   "grad_norm": stats["grad_norm"],
+                   "out_norm": stats["out_norm"]}
+        if "chol_info" in stats:
+            metrics["chol_info"] = stats["chol_info"]
+        else:
+            host_sync("trainer.cg_iters")
+            metrics["cg_iters"] = torch.tensor(
+                stats["cg_iters"] + stats["cg_iters_bwd"], device=dev)
+        scores = _scores(pred, labels, score_type)
+    return state, metrics, scores
 
 
 def _mlp_update(state: TrainState, x: torch.Tensor, labels: torch.Tensor,
@@ -483,6 +495,7 @@ def metrics_to_host(metrics: dict) -> dict:
     exploding-gradient check on them (``ops.warn_exploding_grad`` with the
     module threshold)."""
     keys = list(metrics)
+    host_sync("trainer.metrics_to_host")
     vals = torch.stack([metrics[k].detach().double().reshape(())
                         for k in keys]).cpu().tolist()
     out = dict(zip(keys, vals))
