@@ -16,12 +16,16 @@ reference's ``train_and_adversarial.py``, positional CLI ``{gl|mlp|both}
     (``utils/checkpoint.py``) at ``{save_dir}/{dataset}_{target}_{rob_or_nat}``.
 
 The dataset sits on the device as normalized NCHW float32; batches are row
-gathers.  Losses, the Cholesky infos and the op's gradient norms are read
-on the host once an epoch.  One ``torch.Generator`` on the device, seeded
-from ``seed``, draws the PGD starts and the dropout masks (a fresh mask
-each step; the JAX driver reuses one dropout key for every step, ROADMAP
-section 3).  The GL steps report ``chol_info`` (0 when every Cholesky of the
-run, PGD's included, succeeded): the op has no fallback solver.
+gathers.  That layout stops at the model: PGD's iterates come out of
+elementwise steps in NCHW strides whatever they were given, and on CUDA
+a ``BuildNet`` (the fashionmnist networks) hands each of its encoder calls
+to cuDNN in NHWC strides (``models/buildnet.py::nhwc_input``).  Losses,
+the Cholesky infos and the op's gradient norms are read on the host once
+an epoch.  One ``torch.Generator`` on the device, seeded from ``seed``,
+draws the PGD starts and the dropout masks (a fresh mask each step; the
+JAX driver reuses one dropout key for every step, ROADMAP section 3).
+The GL steps report ``chol_info`` (0 when every Cholesky of the run,
+PGD's included, succeeded): the op has no fallback solver.
 
 Run on the card (the default) or, with ``--dev cpu``, on the CPU:
     python -m graphlearninglayer_tpu_torch.train.adversarial_driver \\

@@ -46,7 +46,9 @@ site calls :func:`host_sync` as it waits.  The count is always on and
 counts on the CPU too, where nothing waits: it counts the sites a run
 passes.  Other counters of the same kind: ``ops.solve.stable_conjgrad.
 iterations`` (every CG iteration), ``ops.transductive.bsr_plans`` (BSR
-plans by route) and the kernels' ``launches``.
+plans by route), ``models.buildnet.encoder_layouts`` (the encoder's CUDA
+inputs, by whether they arrived NHWC-strided or were restrided) and the
+kernels' ``launches``.
 """
 from __future__ import annotations
 
